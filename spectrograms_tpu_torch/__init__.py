@@ -1,0 +1,101 @@
+"""spectrograms_tpu_torch — the PyTorch/CUDA port of spectrograms_tpu.
+
+A second package beside the JAX one, which stays as the reference. This
+slice ports the flagship path: STFT → mel / log-Hz / ERB / linear → power /
+magnitude / dB (``SpectrogramPlan``) and → DCT-II MFCC (``MfccPlan``), with
+the JAX package's one Pallas kernel rewritten as one CUDA kernel for Hopper
+(``ops/fused_factored.py``, ``csrc/fused_features.cu``). Names match
+``spectrograms_tpu``. Entry points compute on CUDA unless given
+``device="cpu"``; the package imports neither JAX nor ``spectrograms_tpu``.
+"""
+
+from __future__ import annotations
+
+from .errors import (
+    SpectrogramError,
+    InvalidInputError,
+    DimensionMismatchError,
+    FftBackendError,
+    InternalError,
+    FFTBackendError,
+)
+from .dtypes import Precision, parse_dtype
+from .windows import (
+    WindowType,
+    make_window,
+    parse_window,
+    hanning_window,
+    hamming_window,
+    blackman_window,
+    rectangular_window,
+    kaiser_window,
+    gaussian_window,
+)
+from .params import (
+    StftParams,
+    StftParamsBuilder,
+    SpectrogramParams,
+    SpectrogramParamsBuilder,
+    LogParams,
+    MelNorm,
+    MelParams,
+    LogHzParams,
+    ErbSpacing,
+    ErbParams,
+    GammatoneParams,
+    CqtParams,
+    ChromaNorm,
+    ChromaParams,
+    N_CHROMA,
+    MfccParams,
+    r2c_output_size,
+)
+from .pipeline import FreqScale, AmpScale, Spectrogram, SpectrogramPlan, StftPlan
+from .mfcc import Mfcc, MfccPlan, mfcc_from_log_mel
+from .convert import plan_constants_from_numpy
+
+__all__ = [
+    "SpectrogramError",
+    "InvalidInputError",
+    "DimensionMismatchError",
+    "FftBackendError",
+    "InternalError",
+    "FFTBackendError",
+    "Precision",
+    "parse_dtype",
+    "WindowType",
+    "make_window",
+    "parse_window",
+    "hanning_window",
+    "hamming_window",
+    "blackman_window",
+    "rectangular_window",
+    "kaiser_window",
+    "gaussian_window",
+    "StftParams",
+    "StftParamsBuilder",
+    "SpectrogramParams",
+    "SpectrogramParamsBuilder",
+    "LogParams",
+    "MelNorm",
+    "MelParams",
+    "LogHzParams",
+    "ErbSpacing",
+    "ErbParams",
+    "GammatoneParams",
+    "CqtParams",
+    "ChromaNorm",
+    "ChromaParams",
+    "N_CHROMA",
+    "MfccParams",
+    "r2c_output_size",
+    "FreqScale",
+    "AmpScale",
+    "Spectrogram",
+    "SpectrogramPlan",
+    "StftPlan",
+    "Mfcc",
+    "MfccPlan",
+    "mfcc_from_log_mel",
+    "plan_constants_from_numpy",
+]

@@ -1,0 +1,60 @@
+"""Carry a JAX plan's constants into a port plan.
+
+A plan's constants play the part that weights play in a model: the window,
+the filterbank and, for MFCC, the DCT-lifter basis. Taking them from a
+``spectrograms_tpu`` plan as numpy arrays (``plan._window``,
+``plan._mapping_t.T``, ``MfccPlan._basis``) and installing them here shows
+that both packages compute the same function from the same constants,
+independently of whether the port's own builders produce the same arrays.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from .errors import DimensionMismatchError, InvalidInputError
+from .mfcc import MfccPlan
+from .pipeline import SpectrogramPlan
+
+__all__ = ["plan_constants_from_numpy"]
+
+
+def _f64(name, array, shape):
+    a = np.asarray(array, dtype=np.float64)
+    if a.shape != shape:
+        raise DimensionMismatchError(shape, a.shape, f"{name}: expected {shape}, got {a.shape}")
+    return a
+
+
+def plan_constants_from_numpy(plan, window, mapping=None, dct_basis: Optional[np.ndarray] = None):
+    """Install ``window`` (n_fft,), ``mapping`` (n_out, n_bins) and, for an
+    :class:`MfccPlan`, ``dct_basis`` (n_mels, n_mfcc) into ``plan``.
+
+    Every derived constant (DFT matrices, kernel constants) is rebuilt from
+    them. ``mapping`` is None for a linear plan. Returns ``plan``.
+    """
+    spec_plan = plan._mel_plan if isinstance(plan, MfccPlan) else plan
+    if not isinstance(spec_plan, SpectrogramPlan):
+        raise InvalidInputError(f"not a port plan: {type(plan).__name__}")
+    n_fft = spec_plan._n_fft
+    window64 = _f64("window", window, (n_fft,))
+    n_bins = n_fft // 2 + 1
+    if spec_plan._mapping_t is None:
+        if mapping is not None:
+            raise InvalidInputError("a linear plan takes no mapping")
+        mapping64 = None
+    else:
+        mapping64 = _f64("mapping", mapping, (spec_plan.n_output_bins, n_bins))
+    if isinstance(plan, MfccPlan):
+        if dct_basis is None:
+            raise InvalidInputError("an MfccPlan needs dct_basis")
+        p = plan.mfcc_params
+        basis64 = _f64("dct_basis", dct_basis, (spec_plan.n_output_bins, p.n_mfcc))
+        plan._install_constants(window64, mapping64, basis64)
+    else:
+        if dct_basis is not None:
+            raise InvalidInputError("only an MfccPlan takes dct_basis")
+        plan._install_constants(window64, mapping64)
+    return plan

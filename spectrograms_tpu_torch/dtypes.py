@@ -1,0 +1,142 @@
+"""Precision, dtype and device handling for the PyTorch port.
+
+Counterpart of ``spectrograms_tpu.dtypes``. Constants (windows, filterbanks,
+DFT/DCT matrices) are built in float64 NumPy and cast at the edge; compute
+runs in the plan's torch dtype on the plan's device.
+
+- ``parse_dtype`` returns a ``torch.dtype``; bfloat16 is ``torch.bfloat16``.
+- ``Precision`` replaces ``jax.lax.Precision`` and keeps its meaning at the
+  plan surface: a ``method="pallas"`` plan rejects ``HIGHEST`` and
+  ``method="auto"`` avoids the fused kernel under it. The port's plain paths
+  always run in true f32 (``check_true_f32``), and its fused kernel is f32
+  throughout, which is at least as precise as every JAX tier.
+- ``resolve_device`` maps ``device=None`` to CUDA and raises when CUDA is
+  absent: an entry point never quietly runs on the CPU.
+"""
+
+from __future__ import annotations
+
+import enum
+
+import numpy as np
+import torch
+
+from .errors import InvalidInputError
+
+__all__ = [
+    "DEFAULT_DTYPE",
+    "Precision",
+    "parse_dtype",
+    "numpy_dtype",
+    "ensure_plan_dtype",
+    "real_dtype_name",
+    "resolve_device",
+    "check_true_f32",
+]
+
+# The framework default, as in the JAX package (the reference crate's is f64).
+DEFAULT_DTYPE = torch.float32
+
+_ALIASES = {
+    "float32": torch.float32,
+    "f32": torch.float32,
+    "float64": torch.float64,
+    "f64": torch.float64,
+    "bfloat16": torch.bfloat16,
+    "bf16": torch.bfloat16,
+}
+
+_TO_NUMPY = {torch.float32: np.dtype(np.float32), torch.float64: np.dtype(np.float64)}
+
+
+class Precision(enum.Enum):
+    """Matmul precision request, the port's ``jax.lax.Precision``."""
+
+    DEFAULT = "default"
+    HIGH = "high"
+    HIGHEST = "highest"
+
+
+def parse_dtype(dtype=None) -> torch.dtype:
+    """Parse a dtype spec ("float32"/"f32"/"float64"/"f64"/"bfloat16"/…).
+
+    Accepts strings, torch dtypes, numpy dtypes and python float types.
+    ``None`` gives float32.
+    """
+    if dtype is None:
+        return DEFAULT_DTYPE
+    if isinstance(dtype, torch.dtype):
+        if not dtype.is_floating_point:
+            raise InvalidInputError(f"unsupported dtype {dtype!r}: must be floating")
+        return dtype
+    if isinstance(dtype, str):
+        key = dtype.strip().lower()
+        if key in _ALIASES:
+            return _ALIASES[key]
+        raise InvalidInputError(
+            f"unsupported dtype {dtype!r}; expected one of {sorted(_ALIASES)}"
+        )
+    try:
+        dt = np.dtype(dtype)
+    except TypeError as e:
+        raise InvalidInputError(f"unsupported dtype {dtype!r}") from e
+    if dt.kind != "f" or dt.name not in _ALIASES:
+        raise InvalidInputError(f"unsupported dtype {dtype!r}: must be float32/float64")
+    return _ALIASES[dt.name]
+
+
+def numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    """NumPy counterpart of a float32/float64 torch dtype."""
+    if dtype not in _TO_NUMPY:
+        raise InvalidInputError(f"{dtype} has no NumPy counterpart here")
+    return _TO_NUMPY[dtype]
+
+
+def ensure_plan_dtype(dtype) -> None:
+    """Plans compute in float32 or float64 only (as in the JAX package)."""
+    if dtype not in (torch.float32, torch.float64):
+        raise InvalidInputError(f"plans compute in float32/float64, got {dtype}")
+
+
+def real_dtype_name(dtype) -> str:
+    """Real-precision dtype name of possibly-complex data ("float32"/"float64")."""
+    names = {torch.complex64: "float32", torch.complex128: "float64"}
+    return names.get(dtype, str(dtype).removeprefix("torch."))
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device a plan computes on: ``None`` means CUDA.
+
+    Raises when the device is CUDA and no card is visible; pass
+    ``device="cpu"`` to run the plain PyTorch paths on the host.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise InvalidInputError(
+                "CUDA is not available; spectrograms_tpu_torch computes on the "
+                "GPU by default — pass device='cpu' to run on the host"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def check_true_f32() -> None:
+    """Raise if TF32 matmuls are enabled.
+
+    The plain paths' float32 matmuls must be true f32, as the JAX package's
+    HIGH/HIGHEST references are: TF32 keeps ~3 decimal digits and would move
+    dB values by far more than the tolerances the port is held to. PyTorch's
+    default (``torch.backends.cuda.matmul.allow_tf32 == False``, precision
+    "highest") is required; the port never enables TF32 itself.
+    """
+    if (
+        torch.backends.cuda.matmul.allow_tf32
+        or torch.get_float32_matmul_precision() != "highest"
+    ):
+        raise InvalidInputError(
+            "TF32 matmuls are enabled (torch.backends.cuda.matmul.allow_tf32 or "
+            "set_float32_matmul_precision); the port's float32 paths require "
+            "true f32 matmuls"
+        )

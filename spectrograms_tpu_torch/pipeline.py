@@ -1,0 +1,393 @@
+"""Spectrogram plans and the result type, in PyTorch.
+
+Counterpart of ``spectrograms_tpu.pipeline`` for LINEAR / MEL / LOG_HZ / ERB
+× POWER / MAGNITUDE / DECIBELS. A plan builds its constants once (window,
+window-folded DFT matrices, filterbank, frequency axis) on its device and
+runs one of three methods:
+
+- ``matmul``: the windowed real DFT as a matmul over hop slices of the
+  signal (``framed_matmul``) → |·|² → filterbank matmul → amplitude;
+- ``fft``: frames → ``torch.fft.rfft`` → |·|² → filterbank → amplitude;
+- ``pallas``: the fused CUDA kernel (``ops.fused_factored``); gradients flow
+  through the plain path (``ops.gradients``). The name is the JAX package's.
+
+``auto`` mirrors the JAX rule: the fused kernel for MEL/LOG_HZ/ERB float32
+plans on a CUDA device (where the JAX package requires a TPU), unless
+``precision=HIGHEST``; ``fft`` for float64 or n_fft > 4096; else ``matmul``.
+
+The JAX package's ``vmap`` becomes an explicit batch axis: ``compute_batch``
+runs the same function on a (B, n) tensor. Entry points compute on CUDA
+unless given ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .dtypes import (
+    Precision,
+    check_true_f32,
+    ensure_plan_dtype,
+    parse_dtype,
+    resolve_device,
+)
+from .errors import InvalidInputError
+from .params import (
+    ErbParams,
+    LogHzParams,
+    LogParams,
+    MelParams,
+    SpectrogramParams,
+    r2c_output_size,
+)
+from .windows import make_window
+from .ops import filterbanks as fb
+from .ops.dft import MATMUL_MAX_N_FFT, rdft_matrices
+from .ops.framing import frame_count, frame_signal, framed_matmul
+from .ops.fused_factored import (
+    KernelConst,
+    fused_factored_features,
+    parse_pallas_method,
+    supports_factored_fusion,
+)
+from .ops.gradients import kernel_forward_twin_grad
+
+__all__ = [
+    "FreqScale",
+    "AmpScale",
+    "Spectrogram",
+    "SpectrogramPlan",
+    "StftPlan",
+]
+
+
+class FreqScale(enum.Enum):
+    """Frequency axis scale (reference marker types LinearHz/Mel/LogHz/Erb/Cqt)."""
+
+    LINEAR = "linear"
+    MEL = "mel"
+    LOG_HZ = "log_hz"
+    ERB = "erb"
+    CQT = "cqt"
+
+
+class AmpScale(enum.Enum):
+    """Amplitude scale (reference marker types Power/Magnitude/Decibels)."""
+
+    POWER = "power"
+    MAGNITUDE = "magnitude"
+    DECIBELS = "decibels"
+
+
+def _apply_amp(mapped, amp: AmpScale, floor_db: Optional[float]):
+    """Power-domain → requested amplitude scale (``spectrogram.rs:2068-2080``)."""
+    if amp == AmpScale.POWER:
+        return mapped
+    if amp == AmpScale.MAGNITUDE:
+        return torch.sqrt(mapped)
+    fd = -80.0 if floor_db is None else float(floor_db)
+    return 10.0 * torch.log10(torch.clamp_min(mapped, 10.0 ** (fd / 10.0)))
+
+
+@dataclass
+class Spectrogram:
+    """Computed spectrogram: data (n_bins × n_frames) + axes + params.
+
+    ``data`` is a torch tensor on the plan's device; the axes are host
+    float64 numpy.
+    """
+
+    data: torch.Tensor
+    frequencies: np.ndarray
+    times: np.ndarray
+    params: SpectrogramParams
+    freq_scale: FreqScale
+    amp_scale: AmpScale
+    floor_db: Optional[float] = None
+
+    @property
+    def n_bins(self) -> int:
+        return self.data.shape[0]
+
+    @property
+    def n_frames(self) -> int:
+        return self.data.shape[1]
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return tuple(self.data.shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.data.dtype
+
+    def __len__(self) -> int:
+        """Number of time frames (the reference's contract)."""
+        return self.n_frames
+
+    def duration(self) -> float:
+        """Duration spanned by the time axis (last frame time), seconds."""
+        return float(self.times[-1]) if len(self.times) else 0.0
+
+    def frequency_range(self) -> Tuple[float, float]:
+        """(f_min, f_max) of the bin axis."""
+        if len(self.frequencies) == 0:
+            return (0.0, 0.0)
+        return (float(self.frequencies[0]), float(self.frequencies[-1]))
+
+    def db_range(self) -> Optional[Tuple[float, float]]:
+        """(min, max) of the data when in decibels, else None."""
+        if self.amp_scale != AmpScale.DECIBELS:
+            return None
+        return (float(self.data.min()), float(self.data.max()))
+
+    def to_numpy(self) -> np.ndarray:
+        return self.data.detach().cpu().numpy()
+
+    def __array__(self, dtype=None, copy=None):
+        arr = self.to_numpy()
+        return arr.astype(dtype) if dtype is not None else arr
+
+    def __repr__(self) -> str:
+        return (
+            f"Spectrogram({self.freq_scale.value}/{self.amp_scale.value}, "
+            f"{self.n_bins} bins x {self.n_frames} frames, dtype={self.dtype})"
+        )
+
+
+def _resolve_method(method: str, n_fft: int, hop: int, dtype, freq_scale,
+                    precision, device: torch.device) -> str:
+    if method.startswith("pallas:"):
+        parse_pallas_method(method)  # raises: the variants are not yet ported
+    elif method in ("factored", "f32x2"):
+        raise InvalidInputError(f"method={method!r} is not yet ported")
+    elif method not in ("auto", "matmul", "fft", "pallas"):
+        raise InvalidInputError(
+            f"unknown method {method!r}; expected auto/matmul/fft/pallas"
+        )
+    if method == "auto":
+        if dtype == torch.float64 or n_fft > MATMUL_MAX_N_FFT:
+            return "fft"
+        if (
+            freq_scale in (FreqScale.MEL, FreqScale.LOG_HZ, FreqScale.ERB)
+            and supports_factored_fusion(n_fft, hop, dtype)
+            and device.type == "cuda"
+            # As in the JAX package, auto never picks the kernel under an
+            # explicit HIGHEST request (a pallas plan rejects it).
+            and precision != Precision.HIGHEST
+        ):
+            return "pallas"
+        return "matmul"
+    return method
+
+
+class SpectrogramPlan:
+    """A reusable spectrogram pipeline for one configuration.
+
+    ``compute`` runs it over a 1-D signal, ``compute_batch`` over a (B, n)
+    batch. Constants live on ``device`` (CUDA unless ``device="cpu"``).
+    """
+
+    def __init__(
+        self,
+        params: SpectrogramParams,
+        freq_scale: FreqScale,
+        amp_scale: AmpScale,
+        scale_params=None,
+        log_params: Optional[LogParams] = None,
+        dtype=None,
+        method: str = "auto",
+        precision: Optional[Precision] = None,
+        device=None,
+    ):
+        self.params = params
+        self.freq_scale = freq_scale
+        self.amp_scale = amp_scale
+        self.scale_params = scale_params
+        self.log_params = log_params
+        self.device = resolve_device(device)
+        self._dtype = parse_dtype(dtype)
+        ensure_plan_dtype(self._dtype)
+        if precision is None:
+            precision = (
+                Precision.HIGHEST if self._dtype == torch.float64 else Precision.HIGH
+            )
+        if not isinstance(precision, Precision):
+            raise InvalidInputError(f"precision must be a Precision, got {precision!r}")
+        self.precision = precision
+
+        stft_p = params.stft
+        n_fft, hop = stft_p.n_fft, stft_p.hop_size
+        sr = params.sample_rate_hz
+        if freq_scale == FreqScale.CQT:
+            raise InvalidInputError("CQT plans are not yet ported")
+        if getattr(scale_params, "multirate", False):
+            raise InvalidInputError("multirate plans are not yet ported")
+        self.method = _resolve_method(
+            method, n_fft, hop, self._dtype, freq_scale, self.precision, self.device
+        )
+
+        mapping = None  # (n_out, n_bins) f64, or None for identity
+        if freq_scale == FreqScale.LINEAR:
+            freqs = np.arange(r2c_output_size(n_fft), dtype=np.float64) * (sr / n_fft)
+        elif freq_scale == FreqScale.MEL:
+            if not isinstance(scale_params, MelParams):
+                raise InvalidInputError("mel plan requires MelParams")
+            if scale_params.f_max > params.nyquist_hz():
+                raise InvalidInputError("f_max must be <= Nyquist")
+            mapping = fb.mel_filterbank(sr, n_fft, scale_params)
+            freqs = fb.mel_band_centres_hz(scale_params.n_mels, sr, params.nyquist_hz())
+        elif freq_scale == FreqScale.LOG_HZ:
+            if not isinstance(scale_params, LogHzParams):
+                raise InvalidInputError("log-hz plan requires LogHzParams")
+            mapping, freqs = fb.loghz_matrix(sr, n_fft, scale_params)
+        elif freq_scale == FreqScale.ERB:
+            if not isinstance(scale_params, ErbParams):
+                raise InvalidInputError("erb plan requires ErbParams")
+            if scale_params.f_max > params.nyquist_hz():
+                raise InvalidInputError("f_max must be <= Nyquist")
+            mapping, freqs = fb.erb_filterbank(sr, n_fft, scale_params)
+        else:
+            raise InvalidInputError(f"unknown freq scale {freq_scale}")
+        self.frequencies = np.asarray(freqs, dtype=np.float64)
+        self.n_output_bins = len(self.frequencies)
+
+        self._floor_db = None if log_params is None else log_params.floor_db
+        if amp_scale == AmpScale.DECIBELS and self._floor_db is None:
+            self._floor_db = -80.0
+        self._n_fft, self._hop, self._centre = n_fft, hop, stft_p.centre
+
+        if self.method == "pallas":
+            if self.precision == Precision.HIGHEST:
+                raise InvalidInputError(
+                    "method='pallas' keeps the JAX package's precision contract "
+                    "(DEFAULT/HIGH tiers) and does not take precision=HIGHEST; "
+                    "use method='fft' or 'matmul' for it"
+                )
+            if not supports_factored_fusion(n_fft, hop, self._dtype):
+                raise InvalidInputError(
+                    "method='pallas' requires float32 and n_fft = 128·2^k in "
+                    f"256..4096 (any hop); got n_fft={n_fft}, hop={hop}. Use "
+                    "method='auto' or 'matmul' for other sizes"
+                )
+        self._install_constants(make_window(stft_p.window, n_fft, np.float64), mapping)
+
+    def _install_constants(self, window64: np.ndarray, mapping64: Optional[np.ndarray]):
+        """(Re)build every device constant from the f64 window and mapping."""
+        dt, dev = self._dtype, self.device
+        self._window = torch.tensor(window64, dtype=dt, device=dev)
+        self._mapping_t = (
+            None if mapping64 is None
+            else torch.tensor(mapping64.T, dtype=dt, device=dev)  # (n_bins, n_out)
+        )
+        if self.method in ("matmul", "pallas"):
+            c, s = rdft_matrices(self._n_fft, window64, dt, dev)
+            # One (n_fft, 2·n_bins) [C | S] constant: one product gives re and im.
+            self._dft_cs = torch.cat([c, s], dim=1)
+        if self.method == "pallas":
+            self._kernel_run = fused_factored_features(
+                self._n_fft,
+                self._hop,
+                tuple(np.asarray(window64, dtype=np.float64).tolist()),
+                "identity" if mapping64 is None else KernelConst(mapping64),
+                amp=self.amp_scale.value,
+                floor_db=self._floor_db if self._floor_db is not None else -80.0,
+                centre=self._centre,
+                device=str(dev),
+            )
+            self._forward = kernel_forward_twin_grad(self._kernel_run, self._forward_impl)
+        else:
+            self._forward = self._forward_impl
+
+    # ---- core math ------------------------------------------------------
+    def _bins(self, re, im):
+        """DFT re, im (..., n_frames, n_bins) → (..., n_frames, n_out) features."""
+        power = re * re + im * im
+        mapped = power if self._mapping_t is None else power @ self._mapping_t
+        return _apply_amp(mapped, self.amp_scale, self._floor_db)
+
+    def _frames_to_bins(self, frames):
+        """(..., n_frames, n_fft) raw frames → (..., n_frames, n_out) features."""
+        if self.method == "fft":
+            spec = torch.fft.rfft(frames * self._window, dim=-1)
+            return self._bins(spec.real, spec.imag)
+        return self._bins(*(frames @ self._dft_cs).chunk(2, dim=-1))
+
+    def _forward_impl(self, x):
+        """The plain path: (..., n) → (..., n_out, n_frames)."""
+        if x.is_cuda and x.dtype == torch.float32:
+            check_true_f32()
+        if self.method == "matmul":
+            # Window folded into [C | S], so frames stay raw: one pass over
+            # the signal's hop slices gives re and im together.
+            ri = framed_matmul(x, self._dft_cs, self._n_fft, self._hop, self._centre)
+            return self._bins(*ri.chunk(2, dim=-1)).transpose(-1, -2)
+        frames = frame_signal(x, self._n_fft, self._hop, self._centre)
+        return self._frames_to_bins(frames).transpose(-1, -2)
+
+    # ---- public API -------------------------------------------------------
+    @property
+    def dtype(self) -> str:
+        return str(self._dtype).removeprefix("torch.")
+
+    def output_shape(self, n_samples: int) -> Tuple[int, int]:
+        """(n_bins, n_frames) for a signal of the given length."""
+        return (
+            self.n_output_bins,
+            frame_count(n_samples, self._n_fft, self._hop, self._centre),
+        )
+
+    def _times(self, n_frames: int) -> np.ndarray:
+        return np.arange(n_frames, dtype=np.float64) * self.params.frame_period_seconds()
+
+    def _as_tensor(self, samples):
+        return torch.as_tensor(samples, dtype=self._dtype, device=self.device)
+
+    def _validate_signal(self, samples):
+        x = self._as_tensor(samples)
+        if x.ndim != 1:
+            raise InvalidInputError(f"expected 1-D signal, got shape {tuple(x.shape)}")
+        if x.shape[0] == 0:
+            raise InvalidInputError("signal must be non-empty")
+        return x
+
+    def compute(self, samples) -> Spectrogram:
+        """Full spectrogram of a 1-D signal."""
+        data = self._forward(self._validate_signal(samples))
+        return Spectrogram(
+            data=data,
+            frequencies=self.frequencies,
+            times=self._times(data.shape[1]),
+            params=self.params,
+            freq_scale=self.freq_scale,
+            amp_scale=self.amp_scale,
+            floor_db=self._floor_db,
+        )
+
+    def compute_raw(self, samples) -> torch.Tensor:
+        """Like :meth:`compute` but returns only the (n_bins, n_frames) tensor."""
+        return self._forward(self._validate_signal(samples))
+
+    def compute_batch(self, batch) -> torch.Tensor:
+        """(B, n) signal batch → (B, n_bins, n_frames)."""
+        xb = self._as_tensor(batch)
+        if xb.ndim != 2:
+            raise InvalidInputError(f"expected (batch, samples), got {tuple(xb.shape)}")
+        if xb.shape[1] == 0:
+            raise InvalidInputError("signal must be non-empty")
+        return self._forward(xb)
+
+    def compute_frame(self, samples, frame_idx: int):
+        raise InvalidInputError("compute_frame is not yet ported")
+
+
+class StftPlan:
+    """The complex STFT plan of the JAX package; not yet ported."""
+
+    def __init__(self, *args, **kwargs):
+        raise InvalidInputError("StftPlan is not yet ported")
