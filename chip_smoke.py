@@ -1,28 +1,38 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port on one GPU: build, check and time its kernel.
+"""Drive the PyTorch/CUDA port on one GPU: build, check and time its kernels.
 
 Run from the repository root, with no arguments::
 
     python3 chip_smoke.py
 
-Phases, each printing one line (any failure exits non-zero, nothing is
-caught):
+Two kernels: ``csrc/fused_features.cu`` (f32, the ``precision=HIGH`` path)
+and ``csrc/fused_tier_features.cu`` (bf16 tensor cores, the
+``precision=DEFAULT`` and ``method="pallas:x2"`` tiers). Phases, each
+printing lines (any failure exits non-zero, nothing is caught); the f32
+kernel's lines carry the values its first recorded runs printed
+("recorded: ...") beside this run's:
 
 1. the card (``nvidia-smi`` name and power limit) and the software versions;
-2. build of ``spectrograms_tpu_torch/csrc/fused_features.cu`` (seconds,
+2. build of both sources, one ``nvcc`` each, started together (seconds,
    ptxas registers/spills);
-3. the fused kernel against its plain PyTorch version on the card, same
-   inputs from a numpy seed, at five geometries;
+3. each kernel against its plain PyTorch version on the card, same inputs
+   from a numpy seed: the f32 kernel at five geometries, the tier kernel at
+   six, on each output's own scale, and also against the f32 exact result
+   at the tier's error limit;
 4. the flagship path: ``MfccPlan.compute_batch`` on a (32, 160000) f32
    batch with ``method="auto"``, launch counter and shape checked, compared
    with the same plan under ``method="matmul"``; then the mel-dB sibling;
-5. the gradient through the kernel route against autograd through the
+   then the same plan at ``precision=DEFAULT`` (tier kernel only) and at
+   ``method="pallas:x2"``, the tier ordering on mel power, and
+   ``ChromaPlan.compute_batch`` on (64, 220500) at 44.1 kHz at ``HIGH`` (f32
+   kernel) and ``DEFAULT`` (tier kernel) against ``method="matmul"``;
+5. the gradient through each kernel route against autograd through the
    plain path;
-6. times at the flagship shape (CUDA events, median and p90 of 100 after
-   warm-up, L2 flushed before each run): kernel, plain version, a PyTorch-call
-   yardstick, the whole ``compute_batch`` and the ``method="matmul"``
-   route; the host time of one ``compute_batch`` and of one kernel-wrapper
-   call; and the kernel's bound;
+6. times (CUDA events, median and p90 of 100 after warm-up, L2 flushed
+   before each run): at the flagship shape each kernel, its plain version,
+   a PyTorch-call yardstick, the whole ``compute_batch``, the
+   ``method="matmul"`` route; host times of one call; the chroma batch
+   through each kernel and a yardstick; and each kernel's bound;
 7. the ``kernels`` JSON line, the card line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -40,11 +50,39 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12       # f32 outside the tensor cores, H100 SXM data sheet
+H100_BF16_FLOPS = 989e12     # bf16 tensor cores, dense, H100 SXM data sheet
 SR = 16000.0
 SEED = 20261016
+# The tier kernel's error limits, relative to max|reference|: the JAX
+# package's tier contract for mel power (tests/test_pallas.py,
+# TestBf16x2Tier: the 1-pass serving tier documented at 2e-3..5e-3, the
+# 2-pass tier below 2e-3). dB outputs are held to it in the power domain
+# they come from (10^(dB/10)). MFCC outputs are the DCT of dB values, where
+# bands far below the frame's peak carry the tier's error relative to the
+# whole frame: they are held to 4e-2 at bf16 and 2e-2 at bf16x2, about
+# twice what the tiers' plain versions show against exact f32 on this
+# script's flagship batch (1.9e-2 and 0.9e-2 on the H100).
+TIER_LIMITS = {"bf16": 5e-3, "bf16x2": 2e-3}
+MFCC_TIER_LIMITS = {"bf16": 4e-2, "bf16x2": 2e-2}
+# The tier kernel against its plain version, each output on its own scale.
+# Both round the same operands to bf16 at the same points; they part only
+# where the kernel's f32 inner DFT, summed in its own order, flips a bf16
+# rounding. dB per element in dB; power and magnitude per element,
+# |d| <= rtol*|ref| + atol*max|ref|; MFCC per coefficient, relative to that
+# coefficient's max|ref| over the batch (so a wrong band shows in the small
+# coefficients, not only against C0). On an H100 80GB HBM3 at 700 W the
+# cases below read 0.303 and 0.064 dB (h, i: one flip moves a band that
+# sits far below its frame's peak by a share of the peak's rounding), an
+# rtol of 1.3e-4 and 4.5e-4 (j, k) and 3.5e-3 and 1.8e-3 per coefficient
+# (f, g); the limits leave room of 1.6x to 4x. One mapping row 10 % off
+# fails the power check, and one mel band 2 dB off the MFCC check.
+TWIN_DB = 0.5
+TWIN_RTOL, TWIN_ATOL = 2e-3, 1e-5
+TWIN_MFCC = 1e-2
 
 
 def fail(msg: str) -> None:
@@ -97,13 +135,49 @@ def host_us(fn, reps: int = 100) -> float:
     return float(np.median(times)) * 1e6
 
 
+def tier_err(out, ref, kind: str, precision: str):
+    """(max|out - ref|, limit, ok) at the tier's limit; dB compared as power."""
+    if kind == "mfcc":
+        limit = MFCC_TIER_LIMITS[precision] * float(ref.abs().max())
+    else:
+        if kind == "db":
+            out, ref = 10.0 ** (out / 10.0), 10.0 ** (ref / 10.0)
+        limit = TIER_LIMITS[precision] * float(ref.abs().max())
+    err = float((out - ref).abs().max())
+    return err, limit, err <= limit
+
+
+def twin_err(out, ref, kind: str):
+    """(reading, limit, ok, what) of the tier kernel against its plain
+    version, on the output's own scale (``TWIN_*``)."""
+    d = (out - ref).abs()
+    if kind == "db":
+        reading = float(d.max())
+        # where the worst element sits below its frame's loudest row
+        at = np.unravel_index(int(d.argmax()), tuple(d.shape))
+        below = float(ref[at[0], :, at[2]].max() - ref[at])
+        return (reading, TWIN_DB, reading <= TWIN_DB,
+                f"max|err| dB (at {below:.1f} dB below its frame's peak)")
+    if kind == "mfcc":
+        per_coef = d.amax(dim=(0, 2)) / ref.abs().amax(dim=(0, 2))
+        reading = float(per_coef.max())
+        return reading, TWIN_MFCC, reading <= TWIN_MFCC, "max|err|/max|ref| per coefficient"
+    # the least rtol that passes at atol TWIN_ATOL*max|ref|
+    excess = (d - TWIN_ATOL * float(ref.abs().max())).clamp_min(0.0)
+    reading = float((excess / ref.abs()).nan_to_num(nan=0.0, posinf=math.inf).max())
+    return (reading, TWIN_RTOL, reading <= TWIN_RTOL,
+            f"rtol needed at atol {TWIN_ATOL:g}*max|ref|")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs one GPU")
     import spectrograms_tpu_torch as tg
     from spectrograms_tpu_torch.mfcc import _dct_lifter_matrix
     from spectrograms_tpu_torch.ops import _build
+    from spectrograms_tpu_torch.ops import factored_layout as fl
     from spectrograms_tpu_torch.ops import fused_factored as ff
+    from spectrograms_tpu_torch.ops.dft import rdft_matrices
     from spectrograms_tpu_torch.ops.filterbanks import chroma_filterbank, mel_filterbank
     from spectrograms_tpu_torch.ops.framing import frame_count
 
@@ -119,14 +193,17 @@ def main() -> None:
 
     # ---- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
+    _build.build_all(["fused_features", "fused_tier_features"])
     _build.load_library("fused_features", ff._SIGNATURES)
-    seconds, log = _build.build_log.get("fused_features", (0.0, "(already built)"))
-    ptxas = " ".join(
-        line.split(":", 1)[-1].strip() for line in log.splitlines()
-        if "registers" in line or "spill" in line
-    )
-    print(f"[2 build] fused_features.cu sm_90a in {seconds:.2f} s "
-          f"(load {time.perf_counter() - t0:.2f} s) | {ptxas}")
+    _build.load_library("fused_tier_features", ff._TIER_SIGNATURES)
+    for name in ("fused_features", "fused_tier_features"):
+        seconds, log = _build.build_log.get(name, (0.0, "(already built)"))
+        ptxas = " ".join(
+            line.split(":", 1)[-1].strip() for line in log.splitlines()
+            if "registers" in line or "spill" in line
+        )
+        print(f"[2 build] {name}.cu sm_90a in {seconds:.2f} s "
+              f"(both, in parallel, loaded in {time.perf_counter() - t0:.2f} s) | {ptxas}")
 
     # ---- 3. kernel against its plain version, on the card ---------------
     rng = np.random.default_rng(SEED)
@@ -155,24 +232,24 @@ def main() -> None:
         err = float((out - ref).abs().max())
         return err, float(excess.max()) <= 0.0, "rtol 1e-4 + atol 1e-7*max|ref|"
 
+    mel40 = mel_filterbank(SR, 512, tg.MelParams(40, 0.0, 8000.0, tg.MelNorm.SLANEY))
     cases = [
         # name, n_fft, hop, sr, mapping (n_out, n_bins) | "identity", amp,
-        # pre_amp, dct, (batch, n), tolerance
+        # pre_amp, dct, (batch, n), tolerance, recorded max|err|
         ("a flagship MFCC 1024/256 mel-128 dB DCT-40", 1024, 256, SR, mel128,
-         "decibels", "none", dct40, (32, 160000), mfcc_tol),
+         "decibels", "none", dct40, (32, 160000), mfcc_tol, "7.080e-03"),
         ("b mel-128 dB 1024/256", 1024, 256, SR, mel128,
-         "decibels", "none", None, (32, 160000), db_tol),
-        ("c mel-40 dB 512/160 (frames-input geometry)", 512, 160, SR,
-         mel_filterbank(SR, 512, tg.MelParams(40, 0.0, 8000.0, tg.MelNorm.SLANEY)),
-         "decibels", "none", None, (32, 160000), db_tol),
+         "decibels", "none", None, (32, 160000), db_tol, "3.185e-04"),
+        ("c mel-40 dB 512/160 (frames-input geometry)", 512, 160, SR, mel40,
+         "decibels", "none", None, (32, 160000), db_tol, "1.011e-04"),
         ("d linear identity power 1024/256", 1024, 256, SR, "identity",
-         "power", "none", None, (8, 160000), power_tol),
+         "power", "none", None, (8, 160000), power_tol, "7.812e-03"),
         ("e chroma 4096/1024 pre_amp=magnitude power", 4096, 1024, 22050.0,
          chroma_filterbank(22050.0, 4096, tg.ChromaParams()),
-         "power", "magnitude", None, (8, 220500), power_tol),
+         "power", "magnitude", None, (8, 220500), power_tol, "1.144e-05"),
     ]
     flagship_err = None
-    for name, n_fft, hop, sr, mapping, amp, pre_amp, dct, (b, n), tol in cases:
+    for name, n_fft, hop, sr, mapping, amp, pre_amp, dct, (b, n), tol, recorded in cases:
         win = hann(n_fft)
         run = ff.fused_factored_features(
             n_fft, hop, tuple(win.tolist()),
@@ -197,12 +274,81 @@ def main() -> None:
             fail(f"[3 {name}] shape {tuple(out.shape)} (want {expect}) or non-finite")
         err, ok, limit = tol(out, ref)
         print(f"[3 kernel vs plain] {name}: max|err| {err:.3e} ({limit}) "
-              f"{'ok' if ok else 'FAIL'}")
+              f"{'ok' if ok else 'FAIL'} (recorded: {recorded})")
         if not ok:
             fail(f"kernel disagrees with its plain version at {name}")
         if flagship_err is None:
             flagship_err = err
         del x, out, ref
+
+    # The tier kernel, on inputs of its own seed (the f32 kernel's phases
+    # keep their inputs). Each case against its plain version on the
+    # output's own scale (TWIN_*), and against the f32 exact result at the
+    # tier's limit; every case prints before a failure ends the phase.
+    rng2 = np.random.default_rng(SEED + 2)
+    tier_cases = [
+        # name, n_fft, hop, sr, mapping, amp, pre_amp, dct, precision,
+        # gauss, (batch, n), kind
+        ("f flagship MFCC bf16 Gauss", 1024, 256, SR, mel128, "decibels", "none", dct40,
+         "bf16", True, (32, 160000), "mfcc"),
+        ("g flagship MFCC bf16x2", 1024, 256, SR, mel128, "decibels", "none", dct40,
+         "bf16x2", False, (32, 160000), "mfcc"),
+        ("h mel-128 dB 1024/256 bf16 packed", 1024, 256, SR, mel128, "decibels", "none",
+         None, "bf16", False, (32, 160000), "db"),
+        ("i mel-40 dB 512/160 bf16 Gauss", 512, 160, SR, mel40, "decibels", "none", None,
+         "bf16", True, (32, 160000), "db"),
+        ("j linear identity power 1024/256 bf16x2", 1024, 256, SR, "identity", "power",
+         "none", None, "bf16x2", False, (8, 160000), "power"),
+        ("k chroma 4096/1024 pre_amp=magnitude 44.1 kHz bf16 Gauss", 4096, 1024, 44100.0,
+         chroma_filterbank(44100.0, 4096, tg.ChromaParams()), "power", "magnitude", None,
+         "bf16", True, (8, 220500), "power"),
+    ]
+    tier_flagship_err, tier_bad = None, []
+    for (name, n_fft, hop, sr, mapping, amp, pre_amp, dct, prec, gauss, (b, n),
+         kind) in tier_cases:
+        win = hann(n_fft)
+        fb = np.eye(n_fft // 2 + 1) if isinstance(mapping, str) else mapping
+        run = ff.fused_factored_features(
+            n_fft, hop, tuple(win.tolist()),
+            mapping if isinstance(mapping, str) else ff.KernelConst(mapping),
+            amp=amp, floor_db=-80.0, centre=True,
+            dct_key=None if dct is None else ff.KernelConst(dct),
+            pre_amp=pre_amp, device=str(dev), precision=prec, gauss=gauss,
+        )
+        f32 = dict(dtype=torch.float32, device=dev)
+        x = torch.from_numpy(signal(rng2, b, n, sr)).to(dev)
+        before = ff.fused_tier_features.launches
+        out = run(x)
+        consts = ff.tier_constants(n_fft, win, fb, dct, prec, gauss, dev)
+        ref = ff.fused_tier_features_reference(x, consts, amp, -80.0, pre_amp, True, hop)
+        exact = ff.fused_features_reference(
+            x, torch.tensor(win, **f32), torch.tensor(fb, **f32), amp, -80.0,
+            pre_amp, None if dct is None else torch.tensor(dct, **f32), True, n_fft, hop,
+        )
+        torch.cuda.synchronize()
+        nf = frame_count(n, n_fft, hop, True)
+        expect = (b, fb.shape[0] if dct is None else dct.shape[1], nf)
+        if tuple(out.shape) != expect or not bool(torch.isfinite(out).all()):
+            fail(f"[3 {name}] shape {tuple(out.shape)} (want {expect}) or non-finite")
+        if ff.fused_tier_features.launches != before + 1:
+            fail(f"[3 {name}] the tier kernel was not launched")
+        reading, limit, ok, what = twin_err(out, ref, kind)
+        abs_err = float((out - ref).abs().max())
+        xerr, xlimit, xok = tier_err(out, exact, kind, prec)
+        perr = tier_err(ref, exact, kind, prec)[0]
+        dom = " in power" if kind == "db" else ""
+        print(f"[3 tier kernel] {name}: vs plain {what} {reading:.3e} (limit {limit:g}), "
+              f"max|err| {abs_err:.3e}; vs f32 exact max|err|{dom} {xerr:.3e} (plain vs "
+              f"exact {perr:.3e}; limit {xlimit:.3e}, "
+              f"{MFCC_TIER_LIMITS[prec] if kind == 'mfcc' else TIER_LIMITS[prec]:g}"
+              f"*max|ref|) {'ok' if ok and xok else 'FAIL'}")
+        if not (ok and xok):
+            tier_bad.append(name)
+        if tier_flagship_err is None:
+            tier_flagship_err = abs_err
+        del x, out, ref, exact
+    if tier_bad:
+        fail(f"tier kernel outside its limits at {', '.join(tier_bad)}")
 
     # ---- 4. the flagship path, through the entry points ------------------
     mel_p = tg.MelParams(128, 0.0, 8000.0, tg.MelNorm.SLANEY)
@@ -213,12 +359,13 @@ def main() -> None:
         fail(f"auto picked {plan.method!r} for the flagship plan, not the kernel")
     xb = torch.from_numpy(signal(rng, 32, 160000, SR)).to(dev)
     ff.fused_factored_features.launches = 0
+    ff.fused_tier_features.launches = 0
     with torch.no_grad():
         y = plan.compute_batch(xb)
     torch.cuda.synchronize()
     launches = ff.fused_factored_features.launches
-    if launches < 1:
-        fail("the flagship compute_batch did not launch the fused kernel")
+    if launches < 1 or ff.fused_tier_features.launches != 0:
+        fail("the flagship compute_batch did not launch the f32 kernel alone")
     if tuple(y.shape) != (32, 40, 626) or not bool(torch.isfinite(y).all()):
         fail(f"flagship output shape {tuple(y.shape)} or non-finite values")
     matmul_plan = tg.MfccPlan(tg.StftParams(1024, 256), SR, **kw, method="matmul")
@@ -227,7 +374,7 @@ def main() -> None:
     limit = 5e-3 * float(ref.abs().max())  # the JAX package's kernel tolerance
     print(f"[4 flagship] MfccPlan.compute_batch (32, 160000) -> {tuple(y.shape)}, "
           f"{launches} launch(es); vs method='matmul' max|err| {err:.3e} "
-          f"(limit {limit:.3e}) {'ok' if err <= limit else 'FAIL'}")
+          f"(limit {limit:.3e}) {'ok' if err <= limit else 'FAIL'} (recorded: 4.883e-03)")
     if err > limit:
         fail("flagship kernel route disagrees with the matmul route")
 
@@ -245,10 +392,94 @@ def main() -> None:
                               method="matmul").compute_batch(xb)
     serr = float((ys - sref).abs().max())
     print(f"[4 sibling] mel-dB SpectrogramPlan.compute_batch -> {tuple(ys.shape)}, "
-          f"{sib_launches} launch(es); vs matmul max|err| {serr:.3e} dB (limit 2e-2)")
+          f"{sib_launches} launch(es); vs matmul max|err| {serr:.3e} dB (limit 2e-2) "
+          f"(recorded: 4.807e-04)")
     if sib.method != "pallas" or sib_launches < 1 or serr > 2e-2:
         fail("mel-dB sibling did not take the kernel or disagrees with matmul")
     del ys, sref, ref
+
+    # The serving tiers through the same entry points, on the same batch.
+    highest = dict(method="matmul", precision=tg.Precision.HIGHEST)
+    exact_mfcc = tg.MfccPlan(tg.StftParams(1024, 256), SR, **kw, **highest).compute_batch(xb)
+    tier_plans = {}
+    for label, prec, desc, kwargs in (
+            ("bf16", "bf16", "precision=DEFAULT", dict(precision=tg.Precision.DEFAULT)),
+            ("bf16x2", "bf16x2", "method='pallas:x2'", dict(method="pallas:x2"))):
+        tplan = tg.MfccPlan(tg.StftParams(1024, 256), SR, **kw, **kwargs)
+        ff.fused_factored_features.launches = 0
+        ff.fused_tier_features.launches = 0
+        with torch.no_grad():
+            yt = tplan.compute_batch(xb)
+        torch.cuda.synchronize()
+        t_launches = ff.fused_tier_features.launches
+        f_launches = ff.fused_factored_features.launches
+        if label == "bf16":
+            tier_launches = t_launches
+            default_plan = tplan
+        else:
+            x2_plan = tplan
+        terr, tlim, tok = tier_err(yt, exact_mfcc, "mfcc", prec)
+        print(f"[4 flagship {label}] MfccPlan({desc}) "
+              f"method {tplan.method!r} compute_batch -> {tuple(yt.shape)}, tier kernel "
+              f"{t_launches} launch(es), f32 kernel {f_launches}; vs HIGHEST matmul max|err| "
+              f"{terr:.3e} (limit {tlim:.3e}) {'ok' if tok else 'FAIL'}")
+        if t_launches < 1 or f_launches != 0 or tuple(yt.shape) != (32, 40, 626) or not tok:
+            fail(f"the {label} flagship did not run the tier kernel alone, or disagrees")
+    del yt, exact_mfcc
+
+    # The tier ordering on the flagship's mel power (TestBf16x2Tier's).
+    def mel_power(**kwargs):
+        return tg.SpectrogramPlan(tg.SpectrogramParams(tg.StftParams(1024, 256), SR),
+                                  tg.FreqScale.MEL, tg.AmpScale.POWER, scale_params=mel_p,
+                                  dtype="float32", **kwargs)
+
+    with torch.no_grad():
+        pref = mel_power(**highest).compute_batch(xb)
+        scale = float(pref.abs().max())
+        e1, e2, e3 = (
+            float((mel_power(**k).compute_batch(xb) - pref).abs().max()) / scale
+            for k in (dict(precision=tg.Precision.DEFAULT), dict(method="pallas:x2"),
+                      dict(precision=tg.Precision.HIGH)))
+    order_ok = e3 < e2 < e1 and e2 < e1 / 2 and e2 < TIER_LIMITS["bf16x2"] and e1 < TIER_LIMITS["bf16"]
+    print(f"[4 tier ordering] mel-128 power (32, 160000) vs HIGHEST matmul, max|err|/max: "
+          f"bf16 {e1:.3e}, bf16x2 {e2:.3e}, HIGH (f32 kernel) {e3:.3e}; need e3 < e2 < e1, "
+          f"e2 < e1/2, e2 < 2e-3, e1 < 5e-3: {'ok' if order_ok else 'FAIL'}")
+    if not order_ok:
+        fail("the tiers do not order")
+    del pref
+
+    # ChromaPlan, the kernel's other caller, on the suite's chroma batch:
+    # 64 clips of 5 s of white noise at 44.1 kHz (benchmarks/suite.py,
+    # config 4). Each frame is L2-normalized over its 12 classes, so its
+    # error is relative to its own chroma energy; noise keeps that a steady
+    # share of the frame's energy, where a loud tone above the bank's
+    # 4186 Hz would not.
+    sr44 = 44100.0
+    xc = torch.from_numpy(rng2.standard_normal((64, 220500)).astype(np.float32)).to(dev)
+    chroma_ref = tg.ChromaPlan(tg.StftParams(4096, 1024), sr44, dtype="float32",
+                               method="matmul").compute_batch(xc)
+    chroma_plans = {}
+    for label, prec, counter, limit in (
+            ("HIGH", None, ff.fused_factored_features, 1e-4),
+            ("DEFAULT", tg.Precision.DEFAULT, ff.fused_tier_features, TIER_LIMITS["bf16"])):
+        cplan = tg.ChromaPlan(tg.StftParams(4096, 1024), sr44, dtype="float32", precision=prec)
+        chroma_plans[label] = cplan
+        ff.fused_factored_features.launches = 0
+        ff.fused_tier_features.launches = 0
+        with torch.no_grad():
+            yc = cplan.compute_batch(xc)
+        torch.cuda.synchronize()
+        cerr = float((yc - chroma_ref).abs().max())
+        clim = limit * float(chroma_ref.abs().max())
+        c_ok = (counter.launches >= 1 and tuple(yc.shape) == (64, 12, 216)
+                and ff.fused_factored_features.launches + ff.fused_tier_features.launches
+                == counter.launches and cerr <= clim)
+        print(f"[4 chroma {label}] ChromaPlan(4096/1024, 44.1 kHz).compute_batch (64, 220500) "
+              f"-> {tuple(yc.shape)}, {counter.__name__} {counter.launches} launch(es); vs "
+              f"method='matmul' max|err| {cerr:.3e} (limit {clim:.3e}) {'ok' if c_ok else 'FAIL'}")
+        if not c_ok:
+            fail(f"the {label} chroma batch did not take its kernel, or disagrees")
+    del yc, chroma_ref
 
     # ---- 5. gradient ----------------------------------------------------
     xs = torch.from_numpy(signal(rng, 2, 16000, SR)).to(dev).requires_grad_(True)
@@ -259,9 +490,17 @@ def main() -> None:
     gerr = float((xs.grad - xt.grad).abs().max())
     glim = 1e-5 * float(xt.grad.abs().max())
     print(f"[5 gradient] kernel route vs autograd through the plain path: "
-          f"max|err| {gerr:.3e} (limit {glim:.3e}) {'ok' if gerr <= glim else 'FAIL'}")
+          f"max|err| {gerr:.3e} (limit {glim:.3e}) {'ok' if gerr <= glim else 'FAIL'} "
+          f"(recorded: 0.000e+00)")
     if gerr > glim:
         fail("gradient through the kernel route differs from the plain path's")
+    xs2 = xs.detach().clone().requires_grad_(True)
+    (default_plan.compute_batch(xs2) * w).sum().backward()
+    gerr2 = float((xs2.grad - xt.grad).abs().max())
+    print(f"[5 gradient bf16] precision=DEFAULT route vs autograd through the f32 plain "
+          f"path: max|err| {gerr2:.3e} (limit {glim:.3e}) {'ok' if gerr2 <= glim else 'FAIL'}")
+    if gerr2 > glim:
+        fail("gradient through the tier kernel route differs from the plain path's")
 
     # ---- 6. times at the flagship shape ---------------------------------
     mel_t = torch.tensor(mel128, dtype=torch.float32, device=dev)
@@ -317,6 +556,128 @@ def main() -> None:
           f"{bound_ms * 1e3:.2f} us ({bytes_moved / 1e6:.2f} MB -> {bytes_ms * 1e3:.2f} us, "
           f"{flops / 1e9:.3f} GFLOP -> {ops_ms * 1e3:.2f} us; mel band bins {band_total})")
 
+    # The tier kernel at the flagship shape, at 1 pass (the DEFAULT plan's
+    # runner) and at x2; its plain version and a PyTorch-call chain at each.
+    bf16 = torch.bfloat16
+    consts1 = ff.tier_constants(1024, hann(1024), mel128, dct40, "bf16", True, dev)
+    consts2 = ff.tier_constants(1024, hann(1024), mel128, dct40, "bf16x2", False, dev)
+
+    def split16(t):
+        hi = t.to(bf16)
+        return hi, (t - hi.float()).to(bf16)
+
+    cs2 = split16(torch.cat(rdft_matrices(1024, hann(1024), torch.float32, dev), dim=1))
+    mel2, dct2 = split16(mel_t.T.contiguous()), split16(dct_t)
+
+    def passes(a, b, n):
+        # dot3's first n products (a_h b_h, a_h b_l, a_l b_h) as bf16 GEMMs
+        a_hi = a.to(bf16)
+        out = (a_hi @ b[0]).float()
+        if n > 1:
+            out = out + (a_hi @ b[1]).float()
+        if n > 2:
+            out = out + ((a - a_hi.float()).to(bf16) @ b[0]).float()
+        return out
+
+    def tier_chain(outer, tail):
+        # frames @ bf16 [C|S] -> power -> bf16 mel -> dB -> bf16 DCT, each
+        # product in the tier's passes: the yardstick only, never called by
+        # the port. PyTorch's bf16 GEMM rounds its output to bf16, so at x2
+        # the chain does the tier's work without reaching its accuracy.
+        fr = F.pad(xb, (512, 512)).unfold(-1, 1024, 256)
+        re, im = passes(fr, cs2, outer).chunk(2, dim=-1)
+        mel = passes(re * re + im * im, mel2, tail)
+        db = 10.0 * torch.log10(torch.clamp_min(mel, eps))
+        return passes(db, dct2, tail).transpose(-1, -2)
+
+    tier1, tier2 = default_plan._kernel_run, x2_plan._kernel_run
+    with torch.no_grad():
+        tier_lib_err = float((tier_chain(1, 1) - tier1(xb)).abs().max())
+        t1_ms, t1_p90 = time_ms(lambda: tier1(xb))
+        t2_ms, t2_p90 = time_ms(lambda: tier2(xb))
+        tplain_ms, tplain_p90 = time_ms(lambda: ff.fused_tier_features_reference(
+            xb, consts1, "decibels", -80.0, "none", True, 256))
+        tplain2_ms, tplain2_p90 = time_ms(lambda: ff.fused_tier_features_reference(
+            xb, consts2, "decibels", -80.0, "none", True, 256))
+        tlib_ms, tlib_p90 = time_ms(lambda: tier_chain(1, 1))
+        tlib2_ms, tlib2_p90 = time_ms(lambda: tier_chain(2, 3))
+        tbatch_ms, tbatch_p90 = time_ms(lambda: default_plan.compute_batch(xb))
+        tbatch_host = host_us(lambda: default_plan.compute_batch(xb))
+
+    def tier_bound(precision, gauss, n_fft, mapping, n_coef, frames, in_bytes, out_bytes, pre):
+        """(bound ms, bytes ms, ops ms): bytes of signal, output and the
+        kernel's constants once; tensor-core MACs of the tier at the bf16
+        rate plus the f32 work outside them at the f32 rate. The outer DFT
+        and the DCT count dense, as the tier's rounding contract has them;
+        the filterbank counts its nonzeros in the folded layout only."""
+        r = n_fft // 128
+        cc, kp = r // 2 - 1, (r // 2 + 1) * 128
+        n_out = mapping.shape[0]
+        map_nnz = int(np.count_nonzero(fl.fold_mapping(mapping, n_fft)))
+        outer, tail = (2, 3) if precision == "bf16x2" else (1, 1)
+        words = 2 if precision == "bf16x2" else 1
+        g_size = 3 * 128 * 128 if gauss else 256 * 256
+        const_bytes = (12 * n_fft + 2 * words * (256 * 256 + (g_size if cc else 0)
+                                                 + map_nnz + n_out * n_coef))
+        macs = (outer * (2 * 128 * 256 + cc * g_size)
+                + tail * (map_nnz + n_out * n_coef))
+        # window; the inner DFT counted as real FFTs over the chunk axis;
+        # twiddles; Gauss sums; |X|^2 (and sqrt); the amplitude scale
+        simt = (n_fft + 128 * 2.5 * r * math.log2(r) + 6 * 128 * cc
+                + (3 * 128 * cc if gauss else 0) + (4 if pre else 3) * kp + n_out)
+        b_ms = (in_bytes + out_bytes + const_bytes) / H100_BYTES_PER_S * 1e3
+        o_ms = frames * (2 * macs / H100_BF16_FLOPS + simt / H100_F32_FLOPS) * 1e3
+        return max(b_ms, o_ms), b_ms, o_ms
+
+    flag_args = (1024, mel128, 40, batch * n_frames, 4 * xb.numel(), 4 * y.numel(), False)
+    tb1, tb1_bytes, tb1_ops = tier_bound("bf16", True, *flag_args)
+    tb2 = tier_bound("bf16x2", False, *flag_args)[0]
+    print(f"[6 times bf16] {card} | median/p90 of 100: tier kernel 1-pass {t1_ms:.4f}/{t1_p90:.4f} ms, "
+          f"x2 {t2_ms:.4f}/{t2_p90:.4f} ms, plain 1-pass {tplain_ms:.4f}/{tplain_p90:.4f} ms, "
+          f"x2 {tplain2_ms:.4f}/{tplain2_p90:.4f} ms, bf16 library chain 1-pass "
+          f"{tlib_ms:.4f}/{tlib_p90:.4f} ms (vs kernel max|diff| {tier_lib_err:.3e}), x2 "
+          f"{tlib2_ms:.4f}/{tlib2_p90:.4f} ms, precision=DEFAULT compute_batch "
+          f"{tbatch_ms:.4f}/{tbatch_p90:.4f} ms | host per compute_batch {tbatch_host:.1f} us "
+          f"| {audio_s / (t1_ms / 1e3):.0f} audio-s/s 1-pass kernel | bound 1-pass "
+          f"{tb1 * 1e3:.2f} us (bytes {tb1_bytes * 1e3:.2f} us, operations {tb1_ops * 1e3:.2f} "
+          f"us), x2 {tb2 * 1e3:.2f} us")
+
+    # The chroma batch through each kernel, with a yardstick each.
+    hplan, dplan = chroma_plans["HIGH"], chroma_plans["DEFAULT"]
+    fb44 = chroma_filterbank(sr44, 4096, tg.ChromaParams())
+    fb44_t = torch.tensor(fb44, dtype=torch.float32, device=dev)
+    win4 = torch.tensor(hann(4096), dtype=torch.float32, device=dev)
+    cs4 = torch.cat(rdft_matrices(4096, hann(4096), torch.float32, dev), dim=1).to(bf16)
+    fb44_16 = fb44_t.T.contiguous().to(bf16)
+
+    def chroma_library():
+        s = torch.stft(xc, 4096, 1024, window=win4, center=True, pad_mode="constant",
+                       return_complex=True)
+        return fb44_t @ s.abs()
+
+    def chroma_library_bf16():
+        fr = F.pad(xc, (2048, 2048)).unfold(-1, 4096, 1024).to(bf16)
+        re, im = (fr @ cs4).float().chunk(2, dim=-1)
+        return (torch.sqrt(re * re + im * im).to(bf16) @ fb44_16).float().transpose(-1, -2)
+
+    with torch.no_grad():
+        c32_ms, c32_p90 = time_ms(lambda: hplan._kernel_run(xc))
+        c16_ms, c16_p90 = time_ms(lambda: dplan._kernel_run(xc))
+        clib_ms, clib_p90 = time_ms(chroma_library)
+        clib16_ms, clib16_p90 = time_ms(chroma_library_bf16)
+    c_frames = xc.shape[0] * 216
+    c_io = (4 * xc.numel(), 4 * xc.shape[0] * 12 * 216)
+    cb16 = tier_bound("bf16", True, 4096, fb44, 0, c_frames, *c_io, True)[0]
+    c_bands = ff.mapping_bands(fb44)
+    c_band_total = int((c_bands[:, 1] - c_bands[:, 0]).sum())
+    c_bytes = (sum(c_io) + 4 * (3 * 4096 + fb44.size + 2 * 12)) / H100_BYTES_PER_S * 1e3
+    c_ops = c_frames * (4096 + 2.5 * 4096 * 12 + 4 * 2049 + 2 * c_band_total) / H100_F32_FLOPS * 1e3
+    cb32 = max(c_bytes, c_ops)
+    print(f"[6 times chroma] {card} | (64, 220500) 4096/1024 44.1 kHz, median/p90 of 100: "
+          f"f32 kernel {c32_ms:.4f}/{c32_p90:.4f} ms (bound {cb32 * 1e3:.2f} us), tier kernel "
+          f"1-pass {c16_ms:.4f}/{c16_p90:.4f} ms (bound {cb16 * 1e3:.2f} us), library chain f32 "
+          f"{clib_ms:.4f}/{clib_p90:.4f} ms, bf16 {clib16_ms:.4f}/{clib16_p90:.4f} ms")
+
     print(json.dumps({"kernels": [{
         "name": "fused_features",
         "route": "cuda",
@@ -329,6 +690,18 @@ def main() -> None:
         "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": library_ms,
+    }, {
+        "name": "fused_tier_features",
+        "route": "cuda",
+        "source": "spectrograms_tpu_torch/csrc/fused_tier_features.cu",
+        "replaces": "spectrograms_tpu/ops/pallas_factored.py:230",
+        "launches": tier_launches,
+        "max_abs_err": tier_flagship_err,
+        "ms": t1_ms,
+        "plain_ms": tplain_ms,
+        "bound_ms": tb1,
+        "bound_by": "bytes" if tb1_bytes >= tb1_ops else "operations",
+        "library_ms": tlib_ms,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

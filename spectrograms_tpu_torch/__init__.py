@@ -1,10 +1,12 @@
 """spectrograms_tpu_torch — the PyTorch/CUDA port of spectrograms_tpu.
 
-A second package beside the JAX one, which stays as the reference. This
-slice ports the flagship path: STFT → mel / log-Hz / ERB / linear → power /
-magnitude / dB (``SpectrogramPlan``) and → DCT-II MFCC (``MfccPlan``), with
-the JAX package's one Pallas kernel rewritten as one CUDA kernel for Hopper
-(``ops/fused_factored.py``, ``csrc/fused_features.cu``). Names match
+A second package beside the JAX one, which stays as the reference. It
+ports the flagship path: STFT → mel / log-Hz / ERB / linear → power /
+magnitude / dB (``SpectrogramPlan``), → DCT-II MFCC (``MfccPlan``) and →
+chroma (``ChromaPlan``), with the JAX package's one Pallas kernel rewritten
+as two CUDA kernels for Hopper (``ops/fused_factored.py``): the f32
+``csrc/fused_features.cu`` for ``precision=HIGH``, and the bf16 tensor-core
+``csrc/fused_tier_features.cu`` for ``precision=DEFAULT`` and ``pallas:x2``. Names match
 ``spectrograms_tpu``. Entry points compute on CUDA unless given
 ``device="cpu"``; the package imports neither JAX nor ``spectrograms_tpu``.
 """
@@ -51,7 +53,15 @@ from .params import (
     r2c_output_size,
 )
 from .pipeline import FreqScale, AmpScale, Spectrogram, SpectrogramPlan, StftPlan
-from .mfcc import Mfcc, MfccPlan, mfcc_from_log_mel
+from .mfcc import Mfcc, MfccPlan, mfcc, compute_mfcc, mfcc_from_log_mel, delta
+from .chroma import (
+    Chromagram,
+    ChromaPlan,
+    chromagram,
+    chromagram_from_spectrogram,
+    compute_chromagram,
+)
+from .ops.filterbanks import chroma_filterbank
 from .convert import plan_constants_from_numpy
 
 __all__ = [
@@ -96,6 +106,15 @@ __all__ = [
     "StftPlan",
     "Mfcc",
     "MfccPlan",
+    "mfcc",
+    "compute_mfcc",
     "mfcc_from_log_mel",
+    "delta",
+    "Chromagram",
+    "ChromaPlan",
+    "chromagram",
+    "chromagram_from_spectrogram",
+    "compute_chromagram",
+    "chroma_filterbank",
     "plan_constants_from_numpy",
 ]

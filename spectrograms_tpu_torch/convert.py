@@ -1,9 +1,10 @@
 """Carry a JAX plan's constants into a port plan.
 
 A plan's constants play the part that weights play in a model: the window,
-the filterbank and, for MFCC, the DCT-lifter basis. Taking them from a
-``spectrograms_tpu`` plan as numpy arrays (``plan._window``,
-``plan._mapping_t.T``, ``MfccPlan._basis``) and installing them here shows
+the filterbank (for chroma, the chroma filterbank) and, for MFCC, the
+DCT-lifter basis. Taking them from a ``spectrograms_tpu`` plan as numpy
+arrays (``plan._window``, ``plan._mapping_t.T``, ``ChromaPlan._fb_t.T``,
+``MfccPlan._basis``) and installing them here shows
 that both packages compute the same function from the same constants,
 independently of whether the port's own builders produce the same arrays.
 """
@@ -14,6 +15,7 @@ from typing import Optional
 
 import numpy as np
 
+from .chroma import ChromaPlan
 from .errors import DimensionMismatchError, InvalidInputError
 from .mfcc import MfccPlan
 from .pipeline import SpectrogramPlan
@@ -32,9 +34,18 @@ def plan_constants_from_numpy(plan, window, mapping=None, dct_basis: Optional[np
     """Install ``window`` (n_fft,), ``mapping`` (n_out, n_bins) and, for an
     :class:`MfccPlan`, ``dct_basis`` (n_mels, n_mfcc) into ``plan``.
 
-    Every derived constant (DFT matrices, kernel constants) is rebuilt from
-    them. ``mapping`` is None for a linear plan. Returns ``plan``.
+    Every derived constant (DFT matrices, the kernel's constants at the
+    plan's tier) is rebuilt from them. ``mapping`` is None for a linear
+    plan, and the (12, n_bins) chroma filterbank for a :class:`ChromaPlan`.
+    Returns ``plan``.
     """
+    if isinstance(plan, ChromaPlan):
+        if dct_basis is not None:
+            raise InvalidInputError("only an MfccPlan takes dct_basis")
+        n_fft = plan._stft.n_fft
+        fb = _f64("mapping", mapping, (plan._fb_t.shape[1], n_fft // 2 + 1))
+        plan._install_constants(_f64("window", window, (n_fft,)), fb)
+        return plan
     spec_plan = plan._mel_plan if isinstance(plan, MfccPlan) else plan
     if not isinstance(spec_plan, SpectrogramPlan):
         raise InvalidInputError(f"not a port plan: {type(plan).__name__}")

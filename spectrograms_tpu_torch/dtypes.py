@@ -5,11 +5,12 @@ DFT/DCT matrices) are built in float64 NumPy and cast at the edge; compute
 runs in the plan's torch dtype on the plan's device.
 
 - ``parse_dtype`` returns a ``torch.dtype``; bfloat16 is ``torch.bfloat16``.
-- ``Precision`` replaces ``jax.lax.Precision`` and keeps its meaning at the
-  plan surface: a ``method="pallas"`` plan rejects ``HIGHEST`` and
-  ``method="auto"`` avoids the fused kernel under it. The port's plain paths
-  always run in true f32 (``check_true_f32``), and its fused kernel is f32
-  throughout, which is at least as precise as every JAX tier.
+- ``Precision`` replaces ``jax.lax.Precision`` and keeps its meaning: a
+  ``method="pallas"`` plan rejects ``HIGHEST`` and ``method="auto"`` avoids
+  the fused kernels under it; on the fused route ``DEFAULT`` runs the 1-pass
+  bf16 tier on tensor cores, as the JAX package does on the MXU, and
+  ``HIGH`` the f32 kernel, at least as precise as the bf16x3 tier. The
+  port's plain paths always run in true f32 (``check_true_f32``).
 - ``resolve_device`` maps ``device=None`` to CUDA and raises when CUDA is
   absent: an entry point never quietly runs on the CPU.
 """
@@ -32,6 +33,7 @@ __all__ = [
     "real_dtype_name",
     "resolve_device",
     "check_true_f32",
+    "result_data",
 ]
 
 # The framework default, as in the JAX package (the reference crate's is f64).
@@ -140,3 +142,11 @@ def check_true_f32() -> None:
             "set_float32_matmul_precision); the port's float32 paths require "
             "true f32 matmuls"
         )
+
+
+def result_data(obj):
+    """The array of a result object (``.data``), or ``obj`` itself when it is
+    already an array or tensor (a numpy array's ``.data`` is its buffer)."""
+    if isinstance(obj, (np.ndarray, torch.Tensor)):
+        return obj
+    return getattr(obj, "data", obj)

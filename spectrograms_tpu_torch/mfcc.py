@@ -6,8 +6,10 @@ Counterpart of ``spectrograms_tpu.mfcc`` (math of the reference's
 
 :class:`MfccPlan` is the flagship path. On the fused route the DCT (with C0
 dropped when ``include_c0=False``) is folded into the CUDA kernel: signal in,
-liftered coefficients out, one launch per ``compute_batch``. Gradients flow
-through the plain path.
+liftered coefficients out, one launch per ``compute_batch``, at the plan's
+tier (``precision=DEFAULT`` and ``pallas:x2`` take the bf16 tensor-core
+kernel). Gradients flow through the plain path. ``mfcc``/``compute_mfcc``
+are the one-shots and ``delta`` the regression deltas.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .dtypes import check_true_f32, parse_dtype, real_dtype_name
+from .dtypes import check_true_f32, numpy_dtype, parse_dtype, real_dtype_name, result_data
 from .errors import InvalidInputError
 from .params import LogParams, MelParams, MfccParams, SpectrogramParams, StftParams
 from .pipeline import AmpScale, FreqScale, Spectrogram, SpectrogramPlan
@@ -29,7 +31,15 @@ from .ops.framing import frame_signal
 from .ops.fused_factored import KernelConst, fused_factored_features
 from .ops.gradients import kernel_forward_twin_grad
 
-__all__ = ["Mfcc", "MfccPlan", "mfcc_from_log_mel", "dct_ii_matrix"]
+__all__ = [
+    "Mfcc",
+    "MfccPlan",
+    "mfcc",
+    "compute_mfcc",
+    "mfcc_from_log_mel",
+    "delta",
+    "dct_ii_matrix",
+]
 
 
 @lru_cache(maxsize=64)
@@ -120,8 +130,8 @@ def mfcc_from_log_mel(log_mel_spec, params: MfccParams = MfccParams()) -> Mfcc:
 class MfccPlan:
     """Signal → mel-dB → DCT MFCC pipeline.
 
-    With ``method="pallas"`` (or ``auto`` for a float32 plan on CUDA) the
-    whole chain is one launch of the fused kernel.
+    With ``method="pallas[:opt]"`` (or ``auto`` for a float32 plan on CUDA)
+    the whole chain is one launch of a fused kernel.
     """
 
     def __init__(
@@ -169,7 +179,7 @@ class MfccPlan:
         (n_mels, n_bins) and DCT-lifter basis (n_mels, n_mfcc)."""
         self._mel_plan._install_constants(window64, mapping64)
         self._basis = torch.tensor(basis64, dtype=self._dtype, device=self.device)
-        if self.method != "pallas":
+        if not self.method.startswith("pallas"):
             self._forward = self._plain_forward
             return
         p = self.mfcc_params
@@ -184,6 +194,7 @@ class MfccPlan:
             centre=self._stft.centre,
             dct_key=KernelConst(kernel_basis),
             device=str(self.device),
+            **self._mel_plan._kernel_kwargs,
         )
         self._kernel_run = run
         self._forward = kernel_forward_twin_grad(run, self._plain_forward)
@@ -208,3 +219,53 @@ class MfccPlan:
         if xb.ndim != 2 or xb.shape[1] == 0:
             raise InvalidInputError(f"expected (batch, samples), got {tuple(xb.shape)}")
         return self._forward(xb)
+
+
+def mfcc(
+    samples,
+    stft_params: StftParams,
+    sample_rate: float,
+    n_mels: int,
+    mfcc_params: MfccParams = MfccParams(),
+    dtype=None,
+    device=None,
+) -> Mfcc:
+    """MFCCs straight from audio (the JAX package's ``mfcc``)."""
+    plan = MfccPlan(stft_params, sample_rate, n_mels, mfcc_params, dtype=dtype, device=device)
+    return plan.compute(samples)
+
+
+def compute_mfcc(
+    samples,
+    stft_params: StftParams,
+    sample_rate: float,
+    n_mels: int = 40,
+    mfcc_params: MfccParams = MfccParams(),
+    dtype=None,
+    device=None,
+) -> Mfcc:
+    """One-shot MFCC (the JAX package's ``compute_mfcc``)."""
+    return mfcc(samples, stft_params, sample_rate, n_mels, mfcc_params, dtype, device)
+
+
+def delta(features, width: int = 9, order: int = 1):
+    """Delta features by local linear regression with edge replication
+    (librosa's ``feature.delta``), along the last axis.
+
+    Computes on the device the input lies on (numpy input: the CPU).
+    """
+    if width < 3 or width % 2 != 1:
+        raise InvalidInputError("width must be an odd integer >= 3")
+    if order < 1:
+        raise InvalidInputError("order must be >= 1")
+    x = torch.as_tensor(result_data(features))
+    half = width // 2
+    n = np.arange(-half, half + 1, dtype=np.float64)
+    k = (n / np.sum(n * n)).astype(numpy_dtype(x.dtype))
+    out = x
+    for _ in range(order):
+        fp = torch.cat([out[..., :1].expand(*out.shape[:-1], half), out,
+                        out[..., -1:].expand(*out.shape[:-1], half)], dim=-1)
+        # correlate along time: d[t] = sum_j k[j] f[t + j - half]
+        out = sum(fp[..., i:i + out.shape[-1]] * float(k[i]) for i in range(width))
+    return out

@@ -5,7 +5,8 @@ into ``build/spectrograms_tpu_torch/lib<name>_<hash>.so`` beside the package;
 the hash covers the source and the flags, so an edited source is rebuilt and
 an unchanged one is loaded as it is. This takes seconds, where a source that
 includes PyTorch's headers (``torch.utils.cpp_extension.load``) takes minutes.
-Nothing is built when the package is imported: only the first launch builds.
+Nothing is built when the package is imported: only the first launch builds,
+or ``build_all``, which starts one ``nvcc`` per source, all together.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from pathlib import Path
 
 from ..errors import FftBackendError
 
-__all__ = ["load_library", "find_nvcc", "build_log", "BUILD_DIR", "NVCC_FLAGS"]
+__all__ = ["load_library", "build_all", "find_nvcc", "build_log", "BUILD_DIR", "NVCC_FLAGS"]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "spectrograms_tpu_torch"
@@ -48,37 +49,57 @@ def find_nvcc() -> str:
     )
 
 
+def _library_path(name: str) -> tuple:
+    """(source, shared library) of ``csrc/<name>.cu``; the library's name
+    carries a hash of the source and the flags."""
+    src = _CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return src, BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build_all(names) -> None:
+    """Compile every ``csrc/<name>.cu`` of ``names`` that is not built yet,
+    one ``nvcc`` each, all started together; raise if any fails."""
+    with _lock:
+        todo = [(name, *_library_path(name)) for name in names]
+        todo = [(name, src, so) for name, src, so in todo if not so.exists()]
+        if not todo:
+            return
+        nvcc = find_nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        jobs = []
+        for name, src, so in todo:
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            jobs.append((name, src, so, tmp, proc))
+        failed = []
+        for name, src, so, tmp, proc in jobs:
+            log = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}) building {src.name}:\n{log}")
+                continue
+            os.replace(tmp, so)
+            build_log[name] = (time.perf_counter() - t0, log)
+        if failed:
+            raise FftBackendError("\n".join(failed))
+
+
 def load_library(name: str, signatures: dict) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``.
 
     ``signatures`` maps each C function to ``(argtypes, restype)``; pointers
     and streams must be ``ctypes.c_void_p`` so 64-bit addresses survive.
     """
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    build_all([name])
     with _lock:
         if name in _libs:
             return _libs[name]
-        src = _CSRC / f"{name}.cu"
-        digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-        so = BUILD_DIR / f"lib{name}_{digest}.so"
-        if not so.exists():
-            nvcc = find_nvcc()
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                raise FftBackendError(
-                    f"nvcc failed ({proc.returncode}) building {src.name}:\n"
-                    f"{proc.stdout}{proc.stderr}"
-                )
-            os.replace(tmp, so)
-            build_log[name] = (time.perf_counter() - t0, proc.stdout + proc.stderr)
-        lib = ctypes.CDLL(str(so))
+        lib = ctypes.CDLL(str(_library_path(name)[1]))
         for fn, (argtypes, restype) in signatures.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = restype

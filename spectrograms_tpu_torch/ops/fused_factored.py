@@ -1,25 +1,31 @@
-"""Fused feature kernel: signal → windowed real DFT → |·|² → filterbank
-(→ dB → DCT) in one CUDA kernel.
+"""Fused feature kernels: signal → windowed real DFT → |·|² → filterbank
+(→ dB → DCT) in one CUDA launch.
 
 Counterpart of ``spectrograms_tpu.ops.pallas_factored``, the JAX package's
-one Pallas kernel (``_kernel``, built by ``fused_factored_features``). The
-kernel is ``csrc/fused_features.cu``, hand-written for Hopper (sm_90a); its
-source note gives its bound on the H100 and what the design does about it.
-This module holds, under the JAX module's public names:
+one Pallas kernel (``_kernel``, built by ``fused_factored_features``). Its
+precision tiers map onto two kernels hand-written for Hopper (sm_90a):
 
-- ``fused_features_reference``: the plain PyTorch version of the same
-  function (the CPU tests and the on-card comparison use it);
-- ``fused_factored_features``: the factory that builds a plan's kernel
-  constants once and returns the runner. The runner launches the kernel on a
-  CUDA tensor (or raises) and runs the plain version on a CPU tensor, the only
-  case in which it does. ``fused_factored_features.launches`` counts launches.
+- ``bf16x3`` (``precision=HIGH``, the default): ``csrc/fused_features.cu``,
+  all f32, more precise than the tier. ``fused_factored_features.launches``
+  counts its launches.
+- ``bf16`` (``precision=DEFAULT``) and ``bf16x2`` (``method="pallas:x2"``):
+  ``csrc/fused_tier_features.cu``, the TPU kernel's factorization with its
+  outer DFT, filterbank and DCT on bf16 tensor cores (``mma.sync``), rounded
+  at the same points as the TPU tiers. ``fused_tier_features.launches``
+  counts its launches.
 
-Modes covered: any hop ≤ n_fft (frames are read straight from the signal,
-so the TPU kernel's halo and frames-input modes are one code path), mel /
-log-Hz / ERB / identity mappings, power / magnitude / dB, ``pre_amp=
-"magnitude"`` and the DCT tail. The arithmetic is f32 throughout, more
-precise than the TPU tiers; the bf16 tiers and the ``pallas:<opt>`` variant
-forms are not ported yet (``parse_pallas_method`` says so).
+Each kernel's source note gives its bound on the H100. This module holds,
+under the JAX module's public names:
+
+- ``parse_pallas_method`` and the factory ``fused_factored_features`` with
+  the JAX factory's variant arguments and errors. The variant forms map onto
+  the two kernels: ``gauss`` is a form of the tier kernel; ``dif``,
+  ``prune`` and ``stack`` are exact rearrangements of the packed product and
+  run it (in the tier kernel, or in the f32 kernel at ``bf16x3``);
+- ``fused_features_reference`` and ``fused_tier_features_reference``, the
+  plain PyTorch versions. A runner launches its kernel on a CUDA tensor (or
+  raises) and runs the plain version on a CPU tensor, the only case in
+  which it does.
 """
 
 from __future__ import annotations
@@ -27,17 +33,23 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
 
 from ..dtypes import parse_dtype, resolve_device
 from ..errors import FftBackendError, InvalidInputError
+from . import factored_layout as fl
 from .framing import frame_count, frame_signal
 
 __all__ = [
     "fused_factored_features",
+    "fused_tier_features",
     "fused_features_reference",
+    "fused_tier_features_reference",
+    "tier_constants",
     "supports_factored_fusion",
     "parse_pallas_method",
     "KernelConst",
@@ -45,11 +57,24 @@ __all__ = [
 
 _AMPS = {"power": 0, "magnitude": 1, "decibels": 2}
 _PRE_AMPS = {"none": 0, "magnitude": 1}
-# The TPU kernel's method-string variants, not ported yet.
-_METHOD_OPTIONS = ("dif", "stack", "gauss", "prune", "x2")
-# Shared memory a block may use on sm_90 (227 KB).
+_PRECISIONS = ("bf16", "bf16x2", "bf16x3")
+_METHOD_OPTIONS = {
+    # method-string suffix -> fused_factored_features kwarg (the JAX table)
+    "dif": ("dif", True),
+    "stack": ("x3_stack", True),
+    "gauss": ("gauss", True),
+    "prune": ("column_prune", True),
+    # a precision tier, unlike the equivalent forms above: callers pop
+    # "precision" so that it wins over the plan's DEFAULT/HIGH tier
+    "x2": ("precision", "bf16x2"),
+}
+# Shared memory a block may use on sm_90 (227 KB), and an SM's (228 KB,
+# of which each resident block reserves 1 KB).
 _MAX_SMEM = 232448
+_SM_SMEM = 233472
 _MAX_TILE_FRAMES = 16
+# Frames per block of the tier kernel: one or two of the mma's 16-row tiles.
+_TIER_TILES = (32, 16)
 
 
 class KernelConst:
@@ -88,28 +113,31 @@ def supports_factored_fusion(n_fft: int, hop: int, dtype) -> bool:
 
 
 def parse_pallas_method(method: str) -> dict:
-    """``"pallas"`` → ``{}``; the ``pallas:<opt>`` variants raise.
+    """``"pallas[:opt[+opt...]]"`` → ``fused_factored_features`` kwargs.
 
-    The JAX package's variant forms (``dif``/``stack``/``gauss``/``prune``
-    and the ``x2`` tier) are not ported yet: a known option raises "not yet
-    ported", an unknown one raises as in the JAX package.
+    The JAX package's parse: ``"pallas:x2+dif"`` gives
+    ``{"precision": "bf16x2", "dif": True}``. Raises on a string that is not
+    a pallas method and on unknown options; the factory checks combinations.
     """
     if method == "pallas":
         return {}
     if not method.startswith("pallas:"):
         raise InvalidInputError(f"not a pallas method string: {method!r}")
+    kwargs = {}
     for opt in method[len("pallas:"):].split("+"):
         if opt not in _METHOD_OPTIONS:
             raise InvalidInputError(
                 f"unknown pallas option {opt!r}; expected one of "
                 f"{sorted(_METHOD_OPTIONS)} joined with '+'"
             )
-    raise InvalidInputError(f"method {method!r} is not yet ported; use 'pallas'")
+        k, v = _METHOD_OPTIONS[opt]
+        kwargs[k] = v
+    return kwargs
 
 
 def fused_features_reference(x, window, mapping, amp, floor_db, pre_amp, dct,
                              centre, n_fft, hop):
-    """Plain PyTorch version of the kernel: (..., n) → (..., n_out, n_frames).
+    """Plain PyTorch version of the f32 kernel: (..., n) → (..., n_out, n_frames).
 
     pad → frames → window → ``torch.fft.rfft`` → |X|² → (sqrt if
     ``pre_amp == "magnitude"``) → ``@ mapping.T`` → amp → (``@ dct``).
@@ -120,13 +148,256 @@ def fused_features_reference(x, window, mapping, amp, floor_db, pre_amp, dct,
     if pre_amp == "magnitude":
         p = torch.sqrt(p)
     feat = p @ mapping.T
+    return _amp_dct(feat, amp, floor_db, dct, lambda a, b: a @ b)
+
+
+def _amp_dct(feat, amp, floor_db, dct, dot):
+    """Amplitude scale, then the optional DCT product; (..., n_frames, ·) →
+    (..., ·, n_frames)."""
     if amp == "magnitude":
         feat = torch.sqrt(feat)
     elif amp == "decibels":
         feat = 10.0 * torch.log10(torch.clamp_min(feat, 10.0 ** (floor_db / 10.0)))
     if dct is not None:
-        feat = feat @ dct
+        feat = dot(feat, dct)
     return feat.transpose(-1, -2).contiguous()
+
+
+# ---- the bf16 tiers -------------------------------------------------------
+
+@dataclass(frozen=True)
+class TierConstants:
+    """A tier plan's constants as f32 tensors (bf16 values where split).
+
+    ``rw_*`` (256, 256) real-class outer constants, ``g_*`` the complex-class
+    constant (packed (256, 256) or Gauss (128, 384)), ``map_*`` the folded
+    mapping (classes·128, n_out), ``dct_*`` (n_out, n_coef) or None.
+    """
+
+    n_fft: int
+    precision: str
+    gauss: bool
+    window: torch.Tensor
+    twiddle: torch.Tensor
+    rw_hi: torch.Tensor
+    rw_lo: torch.Tensor
+    g_hi: torch.Tensor
+    g_lo: torch.Tensor
+    map_hi: torch.Tensor
+    map_lo: torch.Tensor
+    dct_hi: Optional[torch.Tensor]
+    dct_lo: Optional[torch.Tensor]
+
+
+def tier_constants(n_fft, window, mapping, dct, precision, gauss, device) -> TierConstants:
+    """Build a tier's constants from the f64 window (n_fft,), natural
+    mapping (n_out, n_bins) and DCT (n_out, n_coef) or None, on ``device``."""
+    rw, G = fl.outer_constants(n_fft, gauss)
+    t = lambda a: torch.tensor(np.asarray(a, dtype=np.float32), device=device)
+    pair = lambda a: tuple(t(h) for h in fl.split_bf16(a))
+    dct_hi, dct_lo = (None, None) if dct is None else pair(dct)
+    return TierConstants(
+        n_fft, precision, bool(gauss), t(window), t(fl.class_twiddles(n_fft)),
+        *pair(rw), *pair(G), *pair(fl.fold_mapping(mapping, n_fft)), dct_hi, dct_lo,
+    )
+
+
+def _bf16(a):
+    return a.to(torch.bfloat16).to(torch.float32)
+
+
+def _tier_dot(a, b_hi, b_lo, passes: int):
+    """The JAX kernel's ``dot3`` on bf16-rounded operands, f32 sums.
+
+    1 pass aₕbₕ; 2 passes aₕbₕ + aₕbₗ; 3 passes (aₕbₕ + aₕbₗ) + aₗbₕ.
+    Each product of two bf16 values is exact in f32.
+    """
+    a_hi = _bf16(a)
+    y = a_hi @ b_hi
+    if passes > 1:
+        y = y + a_hi @ b_lo
+    if passes > 2:
+        y = y + _bf16(a - a_hi) @ b_hi
+    return y
+
+
+def fused_tier_features_reference(x, consts: TierConstants, amp, floor_db, pre_amp,
+                                  centre, hop):
+    """Plain PyTorch version of the tier kernel: (..., n) → (..., n_out, n_frames).
+
+    The TPU kernel's factorization at the ``bf16`` / ``bf16x2`` tier:
+    frames → window → 128-sample chunks → inner r-point DFT in f32 →
+    twiddle → outer 128-point DFT as products of bf16-rounded operands
+    (1 pass at bf16, 2 at bf16x2; Gauss or packed complex form) → |X|² in
+    the (c, k₁) layout → (sqrt) → folded filterbank → amp → (DCT), the tail
+    products in 1 pass at bf16 and 3 at bf16x2.
+    """
+    c = consts
+    r = c.n_fft // 128
+    outer, tail = (2, 3) if c.precision == "bf16x2" else (1, 1)
+    dot = lambda a, b_hi, b_lo: _tier_dot(a, b_hi, b_lo, outer)
+    frames = frame_signal(x, c.n_fft, hop, centre) * c.window
+    ys = fl.real_fft_classes([frames[..., n2 * 128:(n2 + 1) * 128] for n2 in range(r)])
+    ps = [None] * (r // 2 + 1)
+    for slot, cls in enumerate((0, r // 2)):
+        rows = slice(slot * 128, (slot + 1) * 128)
+        xx = dot(ys[cls][0], c.rw_hi[rows], c.rw_lo[rows])
+        ps[cls] = xx[..., :128] * xx[..., :128] + xx[..., 128:] * xx[..., 128:]
+    for cls in range(1, r // 2):
+        y_re, y_im = ys[cls]
+        tw_re, tw_im = c.twiddle[cls, :128], c.twiddle[cls, 128:]
+        a_re = y_re * tw_re - y_im * tw_im
+        a_im = y_re * tw_im + y_im * tw_re
+        if c.gauss:
+            g = lambda j: (c.g_hi[:, j * 128:(j + 1) * 128], c.g_lo[:, j * 128:(j + 1) * 128])
+            t1 = dot(a_re + a_im, *g(0))
+            t2 = dot(a_im, *g(1))
+            t3 = dot(a_re, *g(2))
+            p, q = t1 - t2, t1 + t3
+        else:
+            xx = dot(torch.cat([a_re, a_im], dim=-1), c.g_hi, c.g_lo)
+            p, q = xx[..., :128], xx[..., 128:]
+        ps[cls] = p * p + q * q
+    power = torch.cat(ps, dim=-1)
+    if pre_amp == "magnitude":
+        power = torch.sqrt(power)
+    feat = _tier_dot(power, c.map_hi, c.map_lo, tail)
+    dct = None if c.dct_hi is None else (c.dct_hi, c.dct_lo)
+    return _amp_dct(feat, amp, floor_db, dct, lambda a, d: _tier_dot(a, *d, tail))
+
+
+def _tier_smem(tile_f: int, n_fft: int, gauss: bool, x2: bool, kd: int,
+               group: int = 1) -> int:
+    """Dynamic shared memory of the tier kernel (bf16 rows padded by 8):
+    A operands of ``group`` classes, P, and the DCT's input when ``kd``."""
+    r = n_fft // 128
+    ka = 128 if r == 2 else (384 if gauss else 256)
+    words = 2 if x2 else 1                    # hi, and lo at bf16x2
+    kp = (r // 2 + 1) * 128
+    feat = tile_f * (kd + 8) * 2 * words if kd else 0
+    return group * tile_f * (ka + 8) * 2 + tile_f * (kp + 8) * 2 * words + feat
+
+
+def _tier_layout(n_fft: int, gauss: bool, x2: bool, kd: int) -> tuple:
+    """(tile_f, group): the largest tile that lets two blocks share an SM,
+    else 16 frames alone on one; then as many classes per group (each group
+    loads the frames' samples once) as shared memory holds without losing a
+    block per SM: the mma chains wait on L2, and the warps of more blocks
+    hide that wait."""
+    for tile in _TIER_TILES:
+        if _tier_smem(tile, n_fft, gauss, x2, kd) <= _MAX_SMEM // 2:
+            break
+    else:
+        tile = 16
+        if _tier_smem(tile, n_fft, gauss, x2, kd) > _MAX_SMEM:
+            raise InvalidInputError(
+                f"a DCT over {kd} rows leaves no room in shared memory for the tier kernel"
+            )
+    blocks = lambda group: _SM_SMEM // (_tier_smem(tile, n_fft, gauss, x2, kd, group) + 1024)
+    classes = n_fft // 256 + 1
+    group = 1
+    while (group < classes and blocks(group + 1) == blocks(1)
+           and _tier_smem(tile, n_fft, gauss, x2, kd, group + 1) <= _MAX_SMEM):
+        group += 1
+    return tile, group
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _fragments(b, rows: int, cols: int, x2: bool, device):
+    """Zero-pad (K, N) to (rows, cols), split to bf16 and lay out as mma B
+    fragments: (hi, lo) int16 tensors of the bf16 bits, lo None at 1 pass."""
+    padded = np.zeros((rows, cols), dtype=np.float64)
+    padded[: b.shape[0], : b.shape[1]] = b
+    hi, lo = fl.split_bf16(padded)
+    frag = lambda a: torch.from_numpy(fl.mma_b_fragments(a).view(np.int16)).to(device)
+    return frag(hi), (frag(lo) if x2 else None)
+
+
+_SIGNATURES = {
+    "fused_features_launch": (
+        [ctypes.c_void_p] * 7
+        + [ctypes.c_int, ctypes.c_longlong]
+        + [ctypes.c_int] * 9
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+        ctypes.c_int,
+    ),
+    "fused_features_error_string": ([ctypes.c_int], ctypes.c_char_p),
+}
+
+_TIER_SIGNATURES = {
+    "fused_tier_features_launch": (
+        [ctypes.c_void_p] * 12
+        + [ctypes.c_int, ctypes.c_longlong]
+        + [ctypes.c_int] * 15
+        + [ctypes.c_float, ctypes.c_void_p],
+        ctypes.c_int,
+    ),
+    "fused_tier_features_error_string": ([ctypes.c_int], ctypes.c_char_p),
+}
+
+
+def _geometry(n_fft, hop, mapping_key, amp, pre_amp, dct_key):
+    """Validate a kernel request; (mapping (n_out, n_bins), dct or None) f64."""
+    if not supports_factored_fusion(n_fft, hop, torch.float32):
+        raise InvalidInputError(
+            f"the fused kernel requires n_fft = 128·2^k in 256..4096 and "
+            f"hop <= n_fft; got n_fft={n_fft}, hop={hop}"
+        )
+    if mapping_key is None:
+        raise InvalidInputError(
+            "the fused kernel requires a mapping matrix; pass "
+            "mapping_key='identity' for linear spectrograms"
+        )
+    if amp not in _AMPS:
+        raise InvalidInputError(f"unknown amp {amp!r}")
+    if pre_amp not in _PRE_AMPS:
+        raise InvalidInputError(f"unknown pre_amp {pre_amp!r}")
+    n_bins = n_fft // 2 + 1
+    if isinstance(mapping_key, str):
+        if mapping_key != "identity":
+            raise InvalidInputError(f"unknown mapping_key {mapping_key!r}")
+        fb = np.eye(n_bins, dtype=np.float64)
+    else:
+        fb = mapping_key.array                               # (n_out, n_bins)
+    if fb.shape[1] != n_bins:
+        raise InvalidInputError(f"mapping has {fb.shape[1]} bins, expected {n_bins}")
+    dct = None if dct_key is None else dct_key.array        # (n_out, n_coef)
+    if dct is not None and dct.shape[0] != fb.shape[0]:
+        raise InvalidInputError(f"dct matrix has {dct.shape[0]} rows, expected {fb.shape[0]}")
+    return fb, dct
+
+
+def _kernel_device(device) -> torch.device:
+    dev = resolve_device(device)
+    if dev.type not in ("cpu", "cuda"):
+        raise InvalidInputError(
+            f"the fused kernel runs on CUDA (its plain version on the CPU), not {dev}"
+        )
+    return dev
+
+
+def _runner(dev, plain, launch):
+    """The runner of a factory: plain version on a CPU tensor, else the kernel."""
+
+    def run(x):
+        if x.dtype != torch.float32:
+            raise InvalidInputError(f"the fused kernel takes float32, got {x.dtype}")
+        if x.device != dev:
+            raise InvalidInputError(f"signal is on {x.device}, the kernel's constants on {dev}")
+        if x.device.type == "cpu":
+            return plain(x)
+        if x.ndim == 1:
+            return launch(x.contiguous()[None, :])[0]
+        if x.ndim != 2:
+            raise InvalidInputError(f"expected (n,) or (batch, n), got {tuple(x.shape)}")
+        if x.shape[0] > 65535:
+            raise InvalidInputError(f"batch {x.shape[0]} exceeds the kernel's grid limit 65535")
+        return launch(x.contiguous())
+
+    return run
 
 
 def _smem_bytes(tile_f: int, n_fft: int, n_bins: int, n_out: int, with_dct: bool) -> int:
@@ -160,18 +431,6 @@ def mapping_bands(fb: np.ndarray) -> np.ndarray:
     return np.stack([lo, hi], axis=1).astype(np.int32)
 
 
-_SIGNATURES = {
-    "fused_features_launch": (
-        [ctypes.c_void_p] * 7
-        + [ctypes.c_int, ctypes.c_longlong]
-        + [ctypes.c_int] * 9
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-        ctypes.c_int,
-    ),
-    "fused_features_error_string": ([ctypes.c_int], ctypes.c_char_p),
-}
-
-
 @functools.lru_cache(maxsize=32)
 def fused_factored_features(
     n_fft: int,
@@ -184,46 +443,47 @@ def fused_factored_features(
     dct_key=None,              # optional KernelConst (n_out, n_coef), after amp
     pre_amp: str = "none",     # "magnitude" applies sqrt BEFORE the filterbank
     device: str = "cuda",
+    precision: str = "bf16x3",
+    gauss=None,                # complex product: True Gauss, False packed,
+                               # None = Gauss at bf16, packed otherwise
+    dif: bool = False,         # the JAX radix-2 DIF form: runs the packed one
+    x3_stack: bool = False,    # the JAX stacked x3 form: runs the f32 kernel
+    column_prune: bool = False,  # the JAX pruned form: runs the packed one
 ):
     """Build the fused program: (n,) or (B, n) f32 signal → (B, n_out, n_frames).
 
-    Constants are built once here, in f64 and cast to f32 on ``device``.
-    The returned runner takes tensors on that device only.
+    ``precision`` picks the kernel: ``"bf16x3"`` the f32 kernel, ``"bf16"``
+    and ``"bf16x2"`` the tier kernel (``fused_tier_features``). The variant
+    arguments are the JAX factory's, with its errors on bad combinations.
+    Constants are built once here, in f64 and cast on ``device``. The
+    returned runner takes tensors on that device only.
     """
-    if not supports_factored_fusion(n_fft, hop, torch.float32):
+    fb, dct = _geometry(n_fft, hop, mapping_key, amp, pre_amp, dct_key)
+    if precision not in _PRECISIONS:
+        raise InvalidInputError(f"unknown precision {precision!r}")
+    r = n_fft // 128
+    x3 = precision == "bf16x3"
+    ks = fl.needed_complex_k1(fb, r) if column_prune else None
+    trunc = ks is not None and r >= 4
+    if dif and trunc:
+        raise InvalidInputError("dif and column_prune truncation are mutually exclusive")
+    if gauss and (trunc or dif):
         raise InvalidInputError(
-            f"the fused kernel requires n_fft = 128·2^k in 256..4096 and "
-            f"hop <= n_fft; got n_fft={n_fft}, hop={hop}"
+            "gauss=True is incompatible with column_prune truncation / dif "
+            "(those paths use their own outer constants)"
         )
-    if mapping_key is None:
-        raise InvalidInputError(
-            "the fused kernel requires a mapping matrix; pass "
-            "mapping_key='identity' for linear spectrograms"
-        )
-    if amp not in _AMPS:
-        raise InvalidInputError(f"unknown amp {amp!r}")
-    if pre_amp not in _PRE_AMPS:
-        raise InvalidInputError(f"unknown pre_amp {pre_amp!r}")
-    n_bins = n_fft // 2 + 1
-    if isinstance(mapping_key, str):
-        if mapping_key != "identity":
-            raise InvalidInputError(f"unknown mapping_key {mapping_key!r}")
-        fb = np.eye(n_bins, dtype=np.float64)
-    else:
-        fb = mapping_key.array                               # (n_out, n_bins)
-    if fb.shape[1] != n_bins:
-        raise InvalidInputError(f"mapping has {fb.shape[1]} bins, expected {n_bins}")
-    n_out = fb.shape[0]
-    dct = None if dct_key is None else dct_key.array        # (n_out, n_coef)
-    if dct is not None and dct.shape[0] != n_out:
-        raise InvalidInputError(f"dct matrix has {dct.shape[0]} rows, expected {n_out}")
-    n_final = n_out if dct is None else dct.shape[1]
+    if x3_stack and not x3:
+        raise InvalidInputError("x3_stack requires the bf16x3 tier")
+    if not x3:
+        use_gauss = False if (trunc or dif) else (
+            precision == "bf16" if gauss is None else bool(gauss))
+        return fused_tier_features(n_fft, hop, window_key, mapping_key, amp, floor_db,
+                                   centre, dct_key, pre_amp, device, precision, use_gauss)
 
-    dev = resolve_device(device)
-    if dev.type not in ("cpu", "cuda"):
-        raise InvalidInputError(
-            f"the fused kernel runs on CUDA (its plain version on the CPU), not {dev}"
-        )
+    n_bins = n_fft // 2 + 1
+    n_out = fb.shape[0]
+    n_final = n_out if dct is None else dct.shape[1]
+    dev = _kernel_device(device)
     f32 = dict(dtype=torch.float32, device=dev)
     win = np.ones(n_fft) if window_key is None else np.asarray(window_key, np.float64)
     window_t = torch.tensor(win, **f32)
@@ -247,8 +507,6 @@ def fused_factored_features(
 
         lib = load_library("fused_features", _SIGNATURES)
         batch, n = xb.shape
-        if batch > 65535:
-            raise InvalidInputError(f"batch {batch} exceeds the kernel's grid limit 65535")
         nf = frame_count(n, n_fft, hop, centre)
         out = torch.empty((batch, n_final, nf), **f32)
         # The C entry launches on the current device; the guard sets it to
@@ -269,22 +527,97 @@ def fused_factored_features(
         fused_factored_features.launches += 1
         return out
 
-    def run(x):
-        if x.dtype != torch.float32:
-            raise InvalidInputError(f"the fused kernel takes float32, got {x.dtype}")
-        if x.device != dev:
-            raise InvalidInputError(f"signal is on {x.device}, the kernel's constants on {dev}")
-        if x.device.type == "cpu":
-            return fused_features_reference(
-                x, window_t, mapping_t, amp, floor_db, pre_amp, dct_t, centre, n_fft, hop
-            )
-        if x.ndim == 1:
-            return launch(x.contiguous()[None, :])[0]
-        if x.ndim != 2:
-            raise InvalidInputError(f"expected (n,) or (batch, n), got {tuple(x.shape)}")
-        return launch(x.contiguous())
+    def plain(x):
+        return fused_features_reference(
+            x, window_t, mapping_t, amp, floor_db, pre_amp, dct_t, centre, n_fft, hop
+        )
 
-    return run
+    return _runner(dev, plain, launch)
 
 
 fused_factored_features.launches = 0
+
+
+@functools.lru_cache(maxsize=32)
+def fused_tier_features(
+    n_fft: int,
+    hop: int,
+    window_key,                # tuple(f64 window) or None
+    mapping_key,               # KernelConst (n_out, n_bins) or "identity"
+    amp: str = "power",
+    floor_db: float = -80.0,
+    centre: bool = True,
+    dct_key=None,              # optional KernelConst (n_out, n_coef), after amp
+    pre_amp: str = "none",
+    device: str = "cuda",
+    precision: str = "bf16",   # "bf16" (1 pass) or "bf16x2"
+    gauss: bool = True,        # complex classes: Gauss 3-mult, else packed
+):
+    """The tier kernel's factory (``csrc/fused_tier_features.cu``).
+
+    Same contract as ``fused_factored_features``, whose ``bf16`` and
+    ``bf16x2`` requests land here; ``fused_tier_features.launches`` counts
+    the kernel's launches.
+    """
+    fb, dct = _geometry(n_fft, hop, mapping_key, amp, pre_amp, dct_key)
+    if precision not in ("bf16", "bf16x2"):
+        raise InvalidInputError(f"the tier kernel runs bf16 and bf16x2, not {precision!r}")
+    dev = _kernel_device(device)
+    win = np.ones(n_fft) if window_key is None else np.asarray(window_key, np.float64)
+    consts = tier_constants(n_fft, win, fb, dct, precision, gauss, dev)
+    floor_db = float(floor_db)
+    n_out = fb.shape[0]
+    n_final = n_out if dct is None else dct.shape[1]
+    x2 = precision == "bf16x2"
+
+    if dev.type == "cuda":
+        r = n_fft // 128
+        kp = (r // 2 + 1) * 128
+        # DCT: the filterbank's columns are the DCT's rows, 16 to a k-step.
+        map_cols = _round_up(n_out, 16 if dct is not None else 8)
+        kd = map_cols if dct is not None else 0
+        rw, G = fl.outer_constants(n_fft, gauss)
+        rw_f = _fragments(rw, 256, 256, x2, dev)
+        g_f = _fragments(G, *G.shape, x2, dev)
+        map_f = _fragments(fl.fold_mapping(fb, n_fft), kp, map_cols, x2, dev)
+        dct_f = (None, None) if dct is None else _fragments(
+            dct, kd, _round_up(dct.shape[1], 8), x2, dev)
+        k = np.arange(n_fft, dtype=np.float64)
+        twiddle_t = torch.tensor(
+            np.stack([np.cos(2.0 * np.pi * k / n_fft), -np.sin(2.0 * np.pi * k / n_fft)], 1),
+            dtype=torch.float32, device=dev)
+        tile_f, group = _tier_layout(n_fft, gauss, x2, kd)
+        smem = _tier_smem(tile_f, n_fft, gauss, x2, kd, group)
+        ptr = lambda t: None if t is None else t.data_ptr()
+        eps = 10.0 ** (floor_db / 10.0)
+
+    def launch(xb):
+        from ._build import load_library
+
+        lib = load_library("fused_tier_features", _TIER_SIGNATURES)
+        batch, n = xb.shape
+        nf = frame_count(n, n_fft, hop, centre)
+        out = torch.empty((batch, n_final, nf), dtype=torch.float32, device=dev)
+        with torch.cuda.device(xb.device):
+            rc = lib.fused_tier_features_launch(
+                xb.data_ptr(), consts.window.data_ptr(), twiddle_t.data_ptr(),
+                *map(ptr, rw_f + g_f + map_f + dct_f), out.data_ptr(),
+                batch, n, n_fft.bit_length() - 1, hop, n_fft // 2 if centre else 0, nf,
+                n_out, 0 if dct is None else n_final, map_cols // 8,
+                0 if dct is None else _round_up(n_final, 8) // 8,
+                _AMPS[amp], _PRE_AMPS[pre_amp], int(x2), int(gauss), tile_f, group, smem, eps,
+                torch.cuda.current_stream(xb.device).cuda_stream,
+            )
+        if rc != 0:
+            msg = lib.fused_tier_features_error_string(rc).decode()
+            raise FftBackendError(f"fused_tier_features kernel launch failed: {msg} ({rc})")
+        fused_tier_features.launches += 1
+        return out
+
+    def plain(x):
+        return fused_tier_features_reference(x, consts, amp, floor_db, pre_amp, centre, hop)
+
+    return _runner(dev, plain, launch)
+
+
+fused_tier_features.launches = 0

@@ -1,9 +1,10 @@
 """Differentiable fused path: kernel forward, plain PyTorch backward.
 
-Counterpart of ``spectrograms_tpu.ops.gradients``. The fused kernel has no
-backward (nor had the TPU kernel), so the forward runs the kernel and the
-backward differentiates the plan's plain torch path (the twin), which
-computes the same function from the same constants.
+Counterpart of ``spectrograms_tpu.ops.gradients``. The fused kernels have no
+backward (nor had the TPU kernel), so the forward runs a kernel (the f32 one
+or, at the bf16 tiers, the tensor-core one) and the backward differentiates
+the plan's plain f32 torch path (the twin), which computes the same function
+from the same constants, as the JAX package's ``pallas_forward_xla_grad``.
 """
 
 from __future__ import annotations

@@ -8,8 +8,11 @@ runs one of three methods:
 - ``matmul``: the windowed real DFT as a matmul over hop slices of the
   signal (``framed_matmul``) → |·|² → filterbank matmul → amplitude;
 - ``fft``: frames → ``torch.fft.rfft`` → |·|² → filterbank → amplitude;
-- ``pallas``: the fused CUDA kernel (``ops.fused_factored``); gradients flow
-  through the plain path (``ops.gradients``). The name is the JAX package's.
+- ``pallas`` and ``pallas:<opt>``: a fused CUDA kernel (``ops.fused_factored``);
+  gradients flow through the plain path (``ops.gradients``). The names are
+  the JAX package's. ``precision=HIGH`` (the default) runs the f32 kernel,
+  ``precision=DEFAULT`` the 1-pass bf16 tier and ``pallas:x2`` the 2-pass
+  tier on tensor cores, as the JAX package's tiers do on the MXU.
 
 ``auto`` mirrors the JAX rule: the fused kernel for MEL/LOG_HZ/ERB float32
 plans on a CUDA device (where the JAX package requires a TPU), unless
@@ -160,15 +163,26 @@ class Spectrogram:
         )
 
 
+def kernel_kwargs(method: str, precision: Precision) -> dict:
+    """``fused_factored_features`` kwargs of a ``pallas[:opt]`` plan: the
+    variant options, and the tier (an explicit ``x2`` wins over the plan's
+    ``DEFAULT`` → bf16 / otherwise bf16x3), as the JAX plans pop it."""
+    if not method.startswith("pallas"):
+        return {}
+    kw = parse_pallas_method(method)
+    kw.setdefault("precision", "bf16" if precision == Precision.DEFAULT else "bf16x3")
+    return kw
+
+
 def _resolve_method(method: str, n_fft: int, hop: int, dtype, freq_scale,
                     precision, device: torch.device) -> str:
     if method.startswith("pallas:"):
-        parse_pallas_method(method)  # raises: the variants are not yet ported
+        parse_pallas_method(method)  # validates the options eagerly
     elif method in ("factored", "f32x2"):
         raise InvalidInputError(f"method={method!r} is not yet ported")
     elif method not in ("auto", "matmul", "fft", "pallas"):
         raise InvalidInputError(
-            f"unknown method {method!r}; expected auto/matmul/fft/pallas"
+            f"unknown method {method!r}; expected auto/matmul/fft/pallas[:variant]"
         )
     if method == "auto":
         if dtype == torch.float64 or n_fft > MATMUL_MAX_N_FFT:
@@ -262,7 +276,7 @@ class SpectrogramPlan:
             self._floor_db = -80.0
         self._n_fft, self._hop, self._centre = n_fft, hop, stft_p.centre
 
-        if self.method == "pallas":
+        if self.method.startswith("pallas"):
             if self.precision == Precision.HIGHEST:
                 raise InvalidInputError(
                     "method='pallas' keeps the JAX package's precision contract "
@@ -275,6 +289,7 @@ class SpectrogramPlan:
                     f"256..4096 (any hop); got n_fft={n_fft}, hop={hop}. Use "
                     "method='auto' or 'matmul' for other sizes"
                 )
+        self._kernel_kwargs = kernel_kwargs(self.method, self.precision)
         self._install_constants(make_window(stft_p.window, n_fft, np.float64), mapping)
 
     def _install_constants(self, window64: np.ndarray, mapping64: Optional[np.ndarray]):
@@ -285,11 +300,11 @@ class SpectrogramPlan:
             None if mapping64 is None
             else torch.tensor(mapping64.T, dtype=dt, device=dev)  # (n_bins, n_out)
         )
-        if self.method in ("matmul", "pallas"):
+        if self.method == "matmul" or self.method.startswith("pallas"):
             c, s = rdft_matrices(self._n_fft, window64, dt, dev)
             # One (n_fft, 2·n_bins) [C | S] constant: one product gives re and im.
             self._dft_cs = torch.cat([c, s], dim=1)
-        if self.method == "pallas":
+        if self.method.startswith("pallas"):
             self._kernel_run = fused_factored_features(
                 self._n_fft,
                 self._hop,
@@ -299,6 +314,7 @@ class SpectrogramPlan:
                 floor_db=self._floor_db if self._floor_db is not None else -80.0,
                 centre=self._centre,
                 device=str(dev),
+                **self._kernel_kwargs,
             )
             self._forward = kernel_forward_twin_grad(self._kernel_run, self._forward_impl)
         else:

@@ -65,12 +65,13 @@ def test_supports_predicate_is_the_jax_one(n_fft, hop, dtype):
 
 
 def test_parse_pallas_method():
-    assert tff.parse_pallas_method("pallas") == {}
-    for opt in ("dif", "stack", "gauss", "prune", "x2", "dif+x2"):
-        jpf.parse_pallas_method(f"pallas:{opt}")  # a valid JAX variant...
-        with pytest.raises(tg.InvalidInputError, match="not yet ported"):
-            tff.parse_pallas_method(f"pallas:{opt}")  # ...not ported yet
-    for bad in ("pallas:nope", "matmul"):
+    """The port's parse returns the JAX dicts, and raises where JAX raises."""
+    for method in ("pallas", "pallas:dif", "pallas:stack", "pallas:gauss", "pallas:prune",
+                   "pallas:x2", "pallas:x2+dif", "pallas:x2+gauss", "pallas:dif+stack",
+                   "pallas:x2+stack", "pallas:dif+x2+prune"):
+        assert tff.parse_pallas_method(method) == jpf.parse_pallas_method(method), method
+    assert tff.parse_pallas_method("pallas:x2+dif") == {"precision": "bf16x2", "dif": True}
+    for bad in ("pallas:nope", "pallas:x2+nope", "pallas:", "matmul"):
         with pytest.raises(sg.InvalidInputError):
             jpf.parse_pallas_method(bad)
         with pytest.raises(tg.InvalidInputError):
@@ -209,6 +210,24 @@ def test_launch_signature_matches_the_c_entry():
     assert "pallas_factored.py::_kernel" in src
     assert "use_fast_math" not in " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_tier_launch_signature_matches_the_c_entry():
+    argtypes, restype = tff._TIER_SIGNATURES["fused_tier_features_launch"]
+    assert restype is ctypes.c_int
+    src = (_build._CSRC / "fused_tier_features.cu").read_text()
+    entry = src[src.index('extern "C" int fused_tier_features_launch('):]
+    params = [q.strip() for q in entry[entry.index("(") + 1: entry.index(")")].split(",")]
+    assert len(params) == len(argtypes)
+    c_type = {ctypes.c_void_p: "*", ctypes.c_int: "int ", ctypes.c_longlong: "long long ",
+              ctypes.c_float: "float "}
+    for param, argtype in zip(params, argtypes):
+        if argtype is ctypes.c_void_p:
+            assert "*" in param, param
+        else:
+            assert param.startswith(c_type[argtype]) and "*" not in param, (param, argtype)
+    assert "pallas_factored.py::_kernel" in src
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
 
 
 def test_missing_nvcc_raises_a_clear_error(monkeypatch, tmp_path):

@@ -125,6 +125,30 @@ def test_mfcc_from_log_mel_matches_jax():
         tg.mfcc_from_log_mel(lm[:10], tg.MfccParams(13))
 
 
+@pytest.mark.parametrize("width,order", [(9, 1), (3, 2), (5, 1)])
+def test_mfcc_one_shots_and_delta_match_jax(width, order):
+    x = noise(16000, seed=15)
+    stft, mp = (512, 256), (13, True, 22)
+    ref = sg.compute_mfcc(x, sg.StftParams(*stft), SR, 40, sg.MfccParams(*mp), dtype="float64")
+    out = tg.compute_mfcc(x, tg.StftParams(*stft), SR, 40, tg.MfccParams(*mp), dtype="float64",
+                          device="cpu")
+    np.testing.assert_allclose(out.to_numpy(), np.asarray(ref.data), rtol=1e-9,
+                               atol=1e-9 * rel_max(ref.data))
+    np.testing.assert_array_equal(
+        tg.mfcc(x, tg.StftParams(*stft), SR, 40, tg.MfccParams(*mp), dtype="float64",
+                device="cpu").to_numpy(), out.to_numpy())
+    d_ref = np.asarray(sg.delta(ref, width, order))
+    np.testing.assert_allclose(tg.delta(out, width, order).numpy(), d_ref, rtol=1e-9,
+                               atol=1e-9 * rel_max(d_ref))
+    # numpy and batched inputs: the last axis is time
+    feats = np.random.default_rng(16).standard_normal((2, 13, 30))
+    np.testing.assert_allclose(tg.delta(feats, width, order).numpy(),
+                               np.asarray(sg.delta(feats, width, order)), rtol=1e-12, atol=1e-12)
+    for bad in (dict(width=4), dict(width=1), dict(order=0)):
+        with pytest.raises(tg.InvalidInputError):
+            tg.delta(feats, **bad)
+
+
 def test_plan_surface_matches_jax():
     x = noise(16000, seed=6, dtype=np.float32)
     j = plan(sg, "mel", "db", dtype="float32", method="matmul")
@@ -150,8 +174,8 @@ def test_plan_surface_matches_jax():
 
 
 @pytest.mark.parametrize("build", [
-    "cqt", "multirate", "factored", "f32x2", "pallas:dif", "pallas:stack+gauss", "pallas:x2",
-    "compute_frame", "stft_plan",
+    "cqt", "multirate", "factored", "f32x2", "loghz_multirate", "mfcc_multirate",
+    "chroma_multirate", "compute_frame", "stft_plan",
 ])
 def test_parts_not_yet_ported_raise(build):
     params = tg.SpectrogramParams(tg.StftParams(1024, 256), SR)
@@ -163,6 +187,16 @@ def test_parts_not_yet_ported_raise(build):
             tg.SpectrogramPlan(params, tg.FreqScale.MEL, tg.AmpScale.POWER,
                                scale_params=tg.MelParams(40, 0.0, 2000.0, multirate=True),
                                device="cpu")
+        elif build == "loghz_multirate":
+            tg.SpectrogramPlan(params, tg.FreqScale.LOG_HZ, tg.AmpScale.POWER,
+                               scale_params=tg.LogHzParams(48, 50.0, 4000.0, multirate=True),
+                               device="cpu")
+        elif build == "mfcc_multirate":
+            tg.MfccPlan(tg.StftParams(1024, 256), SR, device="cpu",
+                        mel_params=tg.MelParams(40, 0.0, 2000.0, multirate=True))
+        elif build == "chroma_multirate":
+            tg.ChromaPlan(tg.StftParams(4096, 1024), 44100.0, device="cpu",
+                          chroma_params=tg.ChromaParams().with_multirate())
         elif build == "compute_frame":
             plan(tg, "mel", "db").compute_frame(np.zeros(4096, np.float32), 0)
         elif build == "stft_plan":
