@@ -9,14 +9,15 @@ Two kernels: ``csrc/fused_features.cu`` (f32, the ``precision=HIGH`` path)
 and ``csrc/fused_tier_features.cu`` (bf16 tensor cores, the
 ``precision=DEFAULT`` and ``method="pallas:x2"`` tiers). Phases, each
 printing lines (any failure exits non-zero, nothing is caught); the f32
-kernel's lines carry the values its first recorded runs printed
-("recorded: ...") beside this run's:
+kernel's lines carry the values that the first recorded runs of its
+first (radix-2) and current (radix-8) designs printed ("recorded: ...")
+beside this run's:
 
 1. the card (``nvidia-smi`` name and power limit) and the software versions;
 2. build of both sources, one ``nvcc`` each, started together (seconds,
    ptxas registers/spills);
 3. each kernel against its plain PyTorch version on the card, same inputs
-   from a numpy seed: the f32 kernel at five geometries, the tier kernel at
+   from a numpy seed: the f32 kernel at eight geometries, the tier kernel at
    six, on each output's own scale, and also against the f32 exact result
    at the tier's error limit;
 4. the flagship path: ``MfccPlan.compute_batch`` on a (32, 160000) f32
@@ -29,10 +30,13 @@ kernel's lines carry the values its first recorded runs printed
 5. the gradient through each kernel route against autograd through the
    plain path;
 6. times (CUDA events, median and p90 of 100 after warm-up, L2 flushed
-   before each run): at the flagship shape each kernel, its plain version,
-   a PyTorch-call yardstick, the whole ``compute_batch``, the
-   ``method="matmul"`` route; host times of one call; the chroma batch
-   through each kernel and a yardstick; and each kernel's bound;
+   and the device held in a ~1 ms spin before each run, so that the host's
+   enqueue stays out of the reading): at the flagship shape each kernel,
+   its plain version, a PyTorch-call yardstick, the whole
+   ``compute_batch``, the ``method="matmul"`` route; host times of one
+   call; the chroma batch through each kernel (the tier kernel at 1 pass
+   and x2), the f32 kernel's plain version and a yardstick; and each
+   kernel's bound;
 7. the ``kernels`` JSON line, the card line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -56,6 +60,7 @@ H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12       # f32 outside the tensor cores, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12     # bf16 tensor cores, dense, H100 SXM data sheet
 SR = 16000.0
+SPIN_CYCLES = 2_000_000  # ~1 ms at the H100's 1980 MHz SM clock
 SEED = 20261016
 # The tier kernel's error limits, relative to max|reference|: the JAX
 # package's tier contract for mel power (tests/test_pallas.py,
@@ -103,13 +108,17 @@ def signal(rng, batch: int, n: int, sr: float) -> np.ndarray:
 def time_ms(fn, reps: int = 100, warmup: int = 5):
     """(median, p90) device time of ``fn`` in ms over ``reps`` runs (ten
     lie beyond the p90). The 50 MB L2 is flushed before each run, since a
-    caller hands the kernel a new batch each time."""
+    caller hands the kernel a new batch each time; a device spin after the
+    flush keeps the host's enqueue time out of the reading."""
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        # ~1 ms of device spin: the host enqueues fn() before the start
+        # event fires, so its enqueue time stays out of the reading
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -178,7 +187,8 @@ def main() -> None:
     from spectrograms_tpu_torch.ops import factored_layout as fl
     from spectrograms_tpu_torch.ops import fused_factored as ff
     from spectrograms_tpu_torch.ops.dft import rdft_matrices
-    from spectrograms_tpu_torch.ops.filterbanks import chroma_filterbank, mel_filterbank
+    from spectrograms_tpu_torch.ops.filterbanks import (chroma_filterbank, erb_filterbank,
+                                                        mel_filterbank)
     from spectrograms_tpu_torch.ops.framing import frame_count
 
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -212,8 +222,8 @@ def main() -> None:
     dct40 = _dct_lifter_matrix(128, 40, 22)
 
     def db_tol(out, ref):
-        # Both sides f32; they differ in summation order only (radix-2 in
-        # shared memory vs cuFFT, loops vs GEMM): ~1e-6 relative in power,
+        # Both sides f32; they differ in summation order only (the kernel's
+        # radix-8 passes vs cuFFT, loops vs GEMM): ~1e-6 relative in power,
         # ~5e-6 dB. 1e-3 dB leaves margin and still fails any wrong bin.
         err = float((out - ref).abs().max())
         return err, err <= 1e-3, "atol 1e-3 dB"
@@ -235,40 +245,59 @@ def main() -> None:
     mel40 = mel_filterbank(SR, 512, tg.MelParams(40, 0.0, 8000.0, tg.MelNorm.SLANEY))
     cases = [
         # name, n_fft, hop, sr, mapping (n_out, n_bins) | "identity", amp,
-        # pre_amp, dct, (batch, n), tolerance, recorded max|err|
+        # pre_amp, dct, centre, (batch, n), tolerance, recorded max|err|
         ("a flagship MFCC 1024/256 mel-128 dB DCT-40", 1024, 256, SR, mel128,
-         "decibels", "none", dct40, (32, 160000), mfcc_tol, "7.080e-03"),
+         "decibels", "none", dct40, True, (32, 160000), mfcc_tol,
+         "radix-2 kernel: 7.080e-03; radix-8 kernel: 6.104e-03"),
         ("b mel-128 dB 1024/256", 1024, 256, SR, mel128,
-         "decibels", "none", None, (32, 160000), db_tol, "3.185e-04"),
+         "decibels", "none", None, True, (32, 160000), db_tol,
+         "radix-2 kernel: 3.185e-04; radix-8 kernel: 3.128e-04"),
         ("c mel-40 dB 512/160 (frames-input geometry)", 512, 160, SR, mel40,
-         "decibels", "none", None, (32, 160000), db_tol, "1.011e-04"),
+         "decibels", "none", None, True, (32, 160000), db_tol,
+         "radix-2 kernel: 1.011e-04; radix-8 kernel: 8.392e-05"),
         ("d linear identity power 1024/256", 1024, 256, SR, "identity",
-         "power", "none", None, (8, 160000), power_tol, "7.812e-03"),
+         "power", "none", None, True, (8, 160000), power_tol,
+         "radix-2 kernel: 7.812e-03; radix-8 kernel: 8.789e-03"),
         ("e chroma 4096/1024 pre_amp=magnitude power", 4096, 1024, 22050.0,
          chroma_filterbank(22050.0, 4096, tg.ChromaParams()),
-         "power", "magnitude", None, (8, 220500), power_tol, "1.144e-05"),
+         "power", "magnitude", None, True, (8, 220500), power_tol,
+         "radix-2 kernel: 1.144e-05; radix-8 kernel: 3.338e-06"),
+        # the staged span's edges: hop 160 and an odd row length put every
+        # frame and row at its own 16-byte shift; centre=False starts at 0
+        ("l mel-128 dB 1024/160, odd length 160001", 1024, 160, SR, mel128,
+         "decibels", "none", None, True, (8, 160001), db_tol, "radix-8 kernel: 2.041e-04"),
+        ("m flagship MFCC centre=False, length 159999", 1024, 256, SR, mel128,
+         "decibels", "none", dct40, False, (8, 159999), mfcc_tol, "radix-8 kernel: 6.958e-03"),
+        # ERB rows are dense: the kernel sums them in longer pieces
+        ("n ERB-128 power 1024/256 (dense rows)", 1024, 256, SR,
+         erb_filterbank(SR, 1024, tg.ErbParams(128, 50.0, 8000.0))[0],
+         "power", "none", None, True, (8, 160000), power_tol, "radix-8 kernel: 2.734e-02"),
     ]
     flagship_err = None
-    for name, n_fft, hop, sr, mapping, amp, pre_amp, dct, (b, n), tol, recorded in cases:
+    edge_rng = np.random.default_rng(SEED + 3)
+    for (name, n_fft, hop, sr, mapping, amp, pre_amp, dct, centre, (b, n), tol,
+         recorded) in cases:
         win = hann(n_fft)
         run = ff.fused_factored_features(
             n_fft, hop, tuple(win.tolist()),
             mapping if isinstance(mapping, str) else ff.KernelConst(mapping),
-            amp=amp, floor_db=-80.0, centre=True,
+            amp=amp, floor_db=-80.0, centre=centre,
             dct_key=None if dct is None else ff.KernelConst(dct),
             pre_amp=pre_amp, device=str(dev),
         )
         fb = np.eye(n_fft // 2 + 1) if isinstance(mapping, str) else mapping
         f32 = dict(dtype=torch.float32, device=dev)
-        x = torch.from_numpy(signal(rng, b, n, sr)).to(dev)
+        # cases l, m and n draw from their own seed, so that the later phases'
+        # inputs stay those of the runs recorded before them
+        x = torch.from_numpy(signal(edge_rng if name[0] in "lmn" else rng, b, n, sr)).to(dev)
         out = run(x)
         ref = ff.fused_features_reference(
             x, torch.tensor(win, **f32), torch.tensor(fb, **f32), amp, -80.0,
             pre_amp, None if dct is None else torch.tensor(dct, **f32),
-            True, n_fft, hop,
+            centre, n_fft, hop,
         )
         torch.cuda.synchronize()
-        nf = frame_count(n, n_fft, hop, True)
+        nf = frame_count(n, n_fft, hop, centre)
         expect = (b, fb.shape[0] if dct is None else dct.shape[1], nf)
         if tuple(out.shape) != expect or not bool(torch.isfinite(out).all()):
             fail(f"[3 {name}] shape {tuple(out.shape)} (want {expect}) or non-finite")
@@ -650,6 +679,11 @@ def main() -> None:
     cs4 = torch.cat(rdft_matrices(4096, hann(4096), torch.float32, dev), dim=1).to(bf16)
     fb44_16 = fb44_t.T.contiguous().to(bf16)
 
+    # the tier kernel at x2 on the chroma shape, beside the f32 kernel
+    chroma_x2 = ff.fused_factored_features(
+        4096, 1024, tuple(hann(4096).tolist()), ff.KernelConst(fb44), amp="power",
+        pre_amp="magnitude", device=str(dev), precision="bf16x2")
+
     def chroma_library():
         s = torch.stft(xc, 4096, 1024, window=win4, center=True, pad_mode="constant",
                        return_complex=True)
@@ -663,6 +697,9 @@ def main() -> None:
     with torch.no_grad():
         c32_ms, c32_p90 = time_ms(lambda: hplan._kernel_run(xc))
         c16_ms, c16_p90 = time_ms(lambda: dplan._kernel_run(xc))
+        c2_ms, c2_p90 = time_ms(lambda: chroma_x2(xc))
+        cplain_ms, cplain_p90 = time_ms(lambda: ff.fused_features_reference(
+            xc, win4, fb44_t, "power", -80.0, "magnitude", None, True, 4096, 1024))
         clib_ms, clib_p90 = time_ms(chroma_library)
         clib16_ms, clib16_p90 = time_ms(chroma_library_bf16)
     c_frames = xc.shape[0] * 216
@@ -674,8 +711,9 @@ def main() -> None:
     c_ops = c_frames * (4096 + 2.5 * 4096 * 12 + 4 * 2049 + 2 * c_band_total) / H100_F32_FLOPS * 1e3
     cb32 = max(c_bytes, c_ops)
     print(f"[6 times chroma] {card} | (64, 220500) 4096/1024 44.1 kHz, median/p90 of 100: "
-          f"f32 kernel {c32_ms:.4f}/{c32_p90:.4f} ms (bound {cb32 * 1e3:.2f} us), tier kernel "
-          f"1-pass {c16_ms:.4f}/{c16_p90:.4f} ms (bound {cb16 * 1e3:.2f} us), library chain f32 "
+          f"f32 kernel {c32_ms:.4f}/{c32_p90:.4f} ms (bound {cb32 * 1e3:.2f} us, plain "
+          f"{cplain_ms:.4f}/{cplain_p90:.4f} ms), tier kernel 1-pass {c16_ms:.4f}/{c16_p90:.4f} "
+          f"ms (bound {cb16 * 1e3:.2f} us), x2 {c2_ms:.4f}/{c2_p90:.4f} ms, library chain f32 "
           f"{clib_ms:.4f}/{clib_p90:.4f} ms, bf16 {clib16_ms:.4f}/{clib16_p90:.4f} ms")
 
     print(json.dumps({"kernels": [{

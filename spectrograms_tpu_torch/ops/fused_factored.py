@@ -41,6 +41,7 @@ import torch
 
 from ..dtypes import parse_dtype, resolve_device
 from ..errors import FftBackendError, InvalidInputError
+from . import f32_layout as fl32
 from . import factored_layout as fl
 from .framing import frame_count, frame_signal
 
@@ -70,9 +71,8 @@ _METHOD_OPTIONS = {
 }
 # Shared memory a block may use on sm_90 (227 KB), and an SM's (228 KB,
 # of which each resident block reserves 1 KB).
-_MAX_SMEM = 232448
+_MAX_SMEM = fl32.MAX_SMEM
 _SM_SMEM = 233472
-_MAX_TILE_FRAMES = 16
 # Frames per block of the tier kernel: one or two of the mma's 16-row tiles.
 _TIER_TILES = (32, 16)
 
@@ -318,10 +318,10 @@ def _fragments(b, rows: int, cols: int, x2: bool, device):
 
 _SIGNATURES = {
     "fused_features_launch": (
-        [ctypes.c_void_p] * 7
+        [ctypes.c_void_p] * 8
         + [ctypes.c_int, ctypes.c_longlong]
         + [ctypes.c_int] * 9
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+        + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
         ctypes.c_int,
     ),
     "fused_features_error_string": ([ctypes.c_int], ctypes.c_char_p),
@@ -400,23 +400,6 @@ def _runner(dev, plain, launch):
     return run
 
 
-def _smem_bytes(tile_f: int, n_fft: int, n_bins: int, n_out: int, with_dct: bool) -> int:
-    feat = tile_f * (n_out + 1) * 4 if with_dct else 0
-    return tile_f * n_fft * 8 + tile_f * n_bins * 4 + feat
-
-
-def _tile_frames(n_fft: int, n_bins: int, n_out: int, with_dct: bool) -> int:
-    """Frames per block: 64 KB of complex FFT space, less where n_out is large."""
-    tile = max(1, min(_MAX_TILE_FRAMES, 65536 // (8 * n_fft)))
-    while tile > 1 and _smem_bytes(tile, n_fft, n_bins, n_out, with_dct) > _MAX_SMEM:
-        tile //= 2
-    if _smem_bytes(tile, n_fft, n_bins, n_out, with_dct) > _MAX_SMEM:
-        raise InvalidInputError(
-            f"n_out={n_out} leaves no room in shared memory for the fused kernel"
-        )
-    return tile
-
-
 def mapping_bands(fb: np.ndarray) -> np.ndarray:
     """(n_out, 2) int32 [first, last + 1) nonzero bin of each mapping row.
 
@@ -480,7 +463,6 @@ def fused_factored_features(
         return fused_tier_features(n_fft, hop, window_key, mapping_key, amp, floor_db,
                                    centre, dct_key, pre_amp, device, precision, use_gauss)
 
-    n_bins = n_fft // 2 + 1
     n_out = fb.shape[0]
     n_final = n_out if dct is None else dct.shape[1]
     dev = _kernel_device(device)
@@ -492,20 +474,30 @@ def fused_factored_features(
     floor_db = float(floor_db)
 
     if dev.type == "cuda":
-        k = np.arange(n_fft // 2, dtype=np.float64)
-        ang = 2.0 * np.pi * k / n_fft
-        twiddle_t = torch.tensor(np.stack([np.cos(ang), -np.sin(ang)], axis=1), **f32)
-        mapping_nat = mapping_t.T.contiguous()               # (n_bins, n_out)
-        bands_t = torch.tensor(mapping_bands(fb), device=dev)
-        tile_f = _tile_frames(n_fft, n_bins, n_out, dct is not None)
-        smem = _smem_bytes(tile_f, n_fft, n_bins, n_out, dct is not None)
+        twiddle_t = torch.tensor(fl32.twiddle_table(n_fft), **f32)
+        items, first, weights = fl32.kernel_pieces(fb)
+        items_t = torch.tensor(items, device=dev)
+        first_t = torch.tensor(first, device=dev)
+        weights_t = torch.tensor(weights, **f32)
+        n_items = len(items)
+        tile = fl32.tile_frames(n_fft, hop, n_items, n_out, dct is not None)
+        layout = fl32.smem_layout(tile, n_fft, hop, n_items, n_out, dct is not None)
         log2n = n_fft.bit_length() - 1
         eps = 10.0 ** (floor_db / 10.0)
 
-    def launch(xb):
+    def launch(xb, lib=None, tile_f=None):
+        """Launch on (batch, n) ``xb``. ``lib`` is another build of the
+        source (a stage variant), whose launches are not counted; ``tile_f``
+        overrides the tile."""
         from ._build import load_library
 
-        lib = load_library("fused_features", _SIGNATURES)
+        own = lib is None
+        lib = load_library("fused_features", _SIGNATURES) if own else lib
+        tile_f = tile if tile_f is None else tile_f
+        if tile_f & (tile_f - 1):
+            raise InvalidInputError(f"the kernel's tile is a power of two, not {tile_f}")
+        buf_off, smem = layout if tile_f == tile else fl32.smem_layout(
+            tile_f, n_fft, hop, n_items, n_out, dct is not None)
         batch, n = xb.shape
         nf = frame_count(n, n_fft, hop, centre)
         out = torch.empty((batch, n_final, nf), **f32)
@@ -514,17 +506,18 @@ def fused_factored_features(
         with torch.cuda.device(xb.device):
             rc = lib.fused_features_launch(
                 xb.data_ptr(), window_t.data_ptr(), twiddle_t.data_ptr(),
-                mapping_nat.data_ptr(), bands_t.data_ptr(),
+                items_t.data_ptr(), first_t.data_ptr(), weights_t.data_ptr(),
                 None if dct_t is None else dct_t.data_ptr(), out.data_ptr(),
                 batch, n, log2n, hop, n_fft // 2 if centre else 0, nf,
-                n_bins, n_out, 0 if dct_t is None else n_final,
-                _AMPS[amp], _PRE_AMPS[pre_amp], eps, tile_f, smem,
+                n_items, n_out, 0 if dct_t is None else n_final,
+                _AMPS[amp], _PRE_AMPS[pre_amp], eps, tile_f, buf_off, smem,
                 torch.cuda.current_stream(xb.device).cuda_stream,
             )
         if rc != 0:
             msg = lib.fused_features_error_string(rc).decode()
             raise FftBackendError(f"fused_features kernel launch failed: {msg} ({rc})")
-        fused_factored_features.launches += 1
+        if own:
+            fused_factored_features.launches += 1
         return out
 
     def plain(x):
@@ -532,7 +525,10 @@ def fused_factored_features(
             x, window_t, mapping_t, amp, floor_db, pre_amp, dct_t, centre, n_fft, hop
         )
 
-    return _runner(dev, plain, launch)
+    run = _runner(dev, plain, launch)
+    if dev.type == "cuda":
+        run.launch, run.tile_f = launch, tile
+    return run
 
 
 fused_factored_features.launches = 0

@@ -22,6 +22,7 @@ from spectrograms_tpu.mfcc import MfccPlan as JaxMfccPlan
 from spectrograms_tpu.ops import pallas_factored as jpf
 from spectrograms_tpu_torch.mfcc import MfccPlan as PortMfccPlan
 from spectrograms_tpu_torch.ops import _build
+from spectrograms_tpu_torch.ops import f32_layout as fl32
 from spectrograms_tpu_torch.ops import fused_factored as tff
 from spectrograms_tpu_torch.ops.gradients import kernel_forward_twin_grad
 from tests.conftest import noise, sine
@@ -191,22 +192,34 @@ def test_tiles_fit_in_shared_memory():
     for n_fft in (256, 512, 1024, 2048, 4096):
         n_bins = n_fft // 2 + 1
         for n_out, dct in ((128, True), (n_bins, False), (12, False)):
-            tile = tff._tile_frames(n_fft, n_bins, n_out, dct)
-            assert 1 <= tile <= 16
-            assert tff._smem_bytes(tile, n_fft, n_bins, n_out, dct) <= tff._MAX_SMEM
-    assert tff._tile_frames(1024, 513, 128, True) == 8   # the flagship: 85 KB
+            for hop in (160, n_fft):
+                n_items = n_bins if n_out == n_bins else 4 * n_out
+                tile = fl32.tile_frames(n_fft, hop, n_items, n_out, dct)
+                assert 1 <= tile and tile * n_fft // 16 <= fl32.MAX_THREADS
+                buf_off, smem = fl32.smem_layout(tile, n_fft, hop, n_items, n_out, dct)
+                assert smem <= tff._MAX_SMEM and buf_off % 4 == 0
+    # the flagship: 4 frames, 256 threads, 24.5 KB (six blocks an SM at 40 registers)
+    assert fl32.tile_frames(1024, 256, 189, 128, True) == 4
+    assert fl32.smem_layout(4, 1024, 256, 189, 128, True)[1] == 25616
+    assert fl32.tile_frames(4096, 1024, 588, 12, False) == 2      # chroma: 512 threads
     with pytest.raises(tg.InvalidInputError):
-        tff._tile_frames(4096, 2049, 60000, True)
+        fl32.tile_frames(4096, 1024, 2049, 60000, True)
 
 
 def test_launch_signature_matches_the_c_entry():
     argtypes, restype = tff._SIGNATURES["fused_features_launch"]
     assert restype is ctypes.c_int
-    assert argtypes[:7] == [ctypes.c_void_p] * 7 and argtypes[-1] is ctypes.c_void_p
     src = (_build._CSRC / "fused_features.cu").read_text()
     entry = src[src.index('extern "C" int fused_features_launch('):]
-    params = entry[entry.index("(") + 1: entry.index(")")].split(",")
+    params = [q.strip() for q in entry[entry.index("(") + 1: entry.index(")")].split(",")]
     assert len(params) == len(argtypes)
+    c_type = {ctypes.c_void_p: "*", ctypes.c_int: "int ", ctypes.c_longlong: "long long ",
+              ctypes.c_float: "float "}
+    for param, argtype in zip(params, argtypes):
+        if argtype is ctypes.c_void_p:
+            assert "*" in param, param
+        else:
+            assert param.startswith(c_type[argtype]) and "*" not in param, (param, argtype)
     assert "pallas_factored.py::_kernel" in src
     assert "use_fast_math" not in " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
