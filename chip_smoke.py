@@ -18,8 +18,9 @@ beside this run's:
    ptxas registers/spills);
 3. each kernel against its plain PyTorch version on the card, same inputs
    from a numpy seed: the f32 kernel at eight geometries, the tier kernel at
-   six, on each output's own scale, and also against the f32 exact result
-   at the tier's error limit;
+   ten (dense ERB rows, hop 160 with ``centre=False`` on an odd length,
+   chroma at x2 and a hop whose span is not staged among them), on each output's own scale, and also against
+   the f32 exact result at the tier's error limit;
 4. the flagship path: ``MfccPlan.compute_batch`` on a (32, 160000) f32
    batch with ``method="auto"``, launch counter and shape checked, compared
    with the same plan under ``method="matmul"``; then the mel-dB sibling;
@@ -35,8 +36,10 @@ beside this run's:
    its plain version, a PyTorch-call yardstick, the whole
    ``compute_batch``, the ``method="matmul"`` route; host times of one
    call; the chroma batch through each kernel (the tier kernel at 1 pass
-   and x2), the f32 kernel's plain version and a yardstick; and each
-   kernel's bound;
+   and x2), each plain version (the tier's at 1 pass and x2) and the
+   yardsticks (the f32 ``torch.stft`` chain, bf16 chains at 1 pass and x2);
+   and each kernel's bound (the tier kernel's over the outer n-tiles that a
+   mapping row reads, with the dense count of earlier runs beside it);
 7. the ``kernels`` JSON line, the card line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -75,16 +78,20 @@ TIER_LIMITS = {"bf16": 5e-3, "bf16x2": 2e-3}
 MFCC_TIER_LIMITS = {"bf16": 4e-2, "bf16x2": 2e-2}
 # The tier kernel against its plain version, each output on its own scale.
 # Both round the same operands to bf16 at the same points; they part only
-# where the kernel's f32 inner DFT, summed in its own order, flips a bf16
-# rounding. dB per element in dB; power and magnitude per element,
-# |d| <= rtol*|ref| + atol*max|ref|; MFCC per coefficient, relative to that
-# coefficient's max|ref| over the batch (so a wrong band shows in the small
-# coefficients, not only against C0). On an H100 80GB HBM3 at 700 W the
-# cases below read 0.303 and 0.064 dB (h, i: one flip moves a band that
-# sits far below its frame's peak by a share of the peak's rounding), an
-# rtol of 1.3e-4 and 4.5e-4 (j, k) and 3.5e-3 and 1.8e-3 per coefficient
-# (f, g); the limits leave room of 1.6x to 4x. One mapping row 10 % off
-# fails the power check, and one mel band 2 dB off the MFCC check.
+# where an f32 sum taken in another order (the outer DFT's mma against the
+# plain version's GEMM) flips a bf16 rounding of the power. dB per element
+# in dB; power and magnitude per element, |d| <= rtol*|ref| +
+# atol*max|ref|; MFCC per coefficient, relative to that coefficient's
+# max|ref| over the batch (so a wrong band shows in the small coefficients,
+# not only against C0). The limits were set from the first tier kernel's
+# readings on an H100 80GB HBM3 at 700 W, whose inner DFT also summed in
+# its own order: 0.303 and 0.064 dB (h, i: one flip moves a band that sits
+# far below its frame's peak by a share of the peak's rounding), an rtol of
+# 1.3e-4 and 4.5e-4 (j, k), 3.5e-3 and 1.8e-3 per coefficient (f, g). The
+# kernel that runs the plain version's inner DFT reads 0.028, 0.022, 0.013
+# and 0.026 dB (h, i, o, p), rtol 0 (j, k, q) and 7.0e-4 and 3.6e-6 per
+# coefficient (f, g). One mapping row 10 % off fails the power check, and
+# one mel band 2 dB off the MFCC check.
 TWIN_DB = 0.5
 TWIN_RTOL, TWIN_ATOL = 2e-3, 1e-5
 TWIN_MFCC = 1e-2
@@ -186,6 +193,7 @@ def main() -> None:
     from spectrograms_tpu_torch.ops import _build
     from spectrograms_tpu_torch.ops import factored_layout as fl
     from spectrograms_tpu_torch.ops import fused_factored as ff
+    from spectrograms_tpu_torch.ops import tier_layout as tl
     from spectrograms_tpu_torch.ops.dft import rdft_matrices
     from spectrograms_tpu_torch.ops.filterbanks import (chroma_filterbank, erb_filterbank,
                                                         mel_filterbank)
@@ -331,31 +339,54 @@ def main() -> None:
         ("k chroma 4096/1024 pre_amp=magnitude 44.1 kHz bf16 Gauss", 4096, 1024, 44100.0,
          chroma_filterbank(44100.0, 4096, tg.ChromaParams()), "power", "magnitude", None,
          "bf16", True, (8, 220500), "power"),
+        # dense ERB rows read every power entry: nothing is skipped. In dB:
+        # a low ERB row takes most of its power from one bin, and one bf16
+        # rounding of that bin's power that the two f32 sums (the kernel's
+        # mma, the plain version's GEMM) send to neighbouring values moves
+        # the row by 3.0e-3 of its power (0.013 dB), over TWIN_RTOL
+        ("o ERB-128 dB 1024/256 bf16 Gauss (dense rows)", 1024, 256, SR,
+         erb_filterbank(SR, 1024, tg.ErbParams(128, 50.0, 8000.0))[0], "decibels", "none",
+         None, "bf16", True, (8, 160000), "db"),
+        # the staged span's edges: hop 160 on an odd length, frames from 0
+        ("p mel-128 dB 1024/160 centre=False, odd length 160001, bf16 Gauss", 1024, 160, SR,
+         mel128, "decibels", "none", None, "bf16", True, (8, 160001), "db"),
+        ("q chroma 4096/1024 pre_amp=magnitude 44.1 kHz bf16x2 Gauss", 4096, 1024, 44100.0,
+         chroma_filterbank(44100.0, 4096, tg.ChromaParams()), "power", "magnitude", None,
+         "bf16x2", True, (8, 220500), "power"),
+        # hop 4096 at n_fft 4096: the span does not fit beside the rest of the
+        # block, so the kernel reads its samples through L1
+        ("r chroma 4096/4096 pre_amp=magnitude 44.1 kHz bf16 Gauss (span not staged)", 4096,
+         4096, 44100.0, chroma_filterbank(44100.0, 4096, tg.ChromaParams()), "power",
+         "magnitude", None, "bf16", True, (4, 220500), "power"),
     ]
+    # cases o to r draw from their own seed, so that the later phases'
+    # inputs stay those of the runs recorded before them
+    tier_edge_rng = np.random.default_rng(SEED + 4)
     tier_flagship_err, tier_bad = None, []
     for (name, n_fft, hop, sr, mapping, amp, pre_amp, dct, prec, gauss, (b, n),
          kind) in tier_cases:
+        centre = not name.startswith("p ")
         win = hann(n_fft)
         fb = np.eye(n_fft // 2 + 1) if isinstance(mapping, str) else mapping
         run = ff.fused_factored_features(
             n_fft, hop, tuple(win.tolist()),
             mapping if isinstance(mapping, str) else ff.KernelConst(mapping),
-            amp=amp, floor_db=-80.0, centre=True,
+            amp=amp, floor_db=-80.0, centre=centre,
             dct_key=None if dct is None else ff.KernelConst(dct),
             pre_amp=pre_amp, device=str(dev), precision=prec, gauss=gauss,
         )
         f32 = dict(dtype=torch.float32, device=dev)
-        x = torch.from_numpy(signal(rng2, b, n, sr)).to(dev)
+        x = torch.from_numpy(signal(tier_edge_rng if name[0] in "opqr" else rng2, b, n, sr)).to(dev)
         before = ff.fused_tier_features.launches
         out = run(x)
         consts = ff.tier_constants(n_fft, win, fb, dct, prec, gauss, dev)
-        ref = ff.fused_tier_features_reference(x, consts, amp, -80.0, pre_amp, True, hop)
+        ref = ff.fused_tier_features_reference(x, consts, amp, -80.0, pre_amp, centre, hop)
         exact = ff.fused_features_reference(
             x, torch.tensor(win, **f32), torch.tensor(fb, **f32), amp, -80.0,
-            pre_amp, None if dct is None else torch.tensor(dct, **f32), True, n_fft, hop,
+            pre_amp, None if dct is None else torch.tensor(dct, **f32), centre, n_fft, hop,
         )
         torch.cuda.synchronize()
-        nf = frame_count(n, n_fft, hop, True)
+        nf = frame_count(n, n_fft, hop, centre)
         expect = (b, fb.shape[0] if dct is None else dct.shape[1], nf)
         if tuple(out.shape) != expect or not bool(torch.isfinite(out).all()):
             fail(f"[3 {name}] shape {tuple(out.shape)} (want {expect}) or non-finite")
@@ -633,27 +664,36 @@ def main() -> None:
         tbatch_ms, tbatch_p90 = time_ms(lambda: default_plan.compute_batch(xb))
         tbatch_host = host_us(lambda: default_plan.compute_batch(xb))
 
-    def tier_bound(precision, gauss, n_fft, mapping, n_coef, frames, in_bytes, out_bytes, pre):
+    def tier_bound(precision, gauss, n_fft, mapping, n_coef, frames, in_bytes, out_bytes, pre,
+                   dense=False):
         """(bound ms, bytes ms, ops ms): bytes of signal, output and the
-        kernel's constants once; tensor-core MACs of the tier at the bf16
-        rate plus the f32 work outside them at the f32 rate. The outer DFT
-        and the DCT count dense, as the tier's rounding contract has them;
-        the filterbank counts its nonzeros in the folded layout only."""
+        constants the kernel reads, once; tensor-core MACs of the tier at
+        the bf16 rate plus the f32 work outside them at the f32 rate. The
+        outer DFT counts the 8-column n-tiles that a mapping row reads (the
+        kernel computes no other; ``dense``: every n-tile, as the first
+        design's bound counted), the filterbank its nonzeros in the folded layout, the DCT
+        dense."""
         r = n_fft // 128
         cc, kp = r // 2 - 1, (r // 2 + 1) * 128
         n_out = mapping.shape[0]
         map_nnz = int(np.count_nonzero(fl.fold_mapping(mapping, n_fft)))
+        ntiles = [range(16)] * (r // 2 + 1) if dense else tl.class_ntiles(mapping, n_fft)
+        real_nt = len(ntiles[0]) + len(ntiles[r // 2])
+        cplx_nt = sum(len(ntiles[c]) for c in range(1, r // 2))
+        cplx_cols = len(set().union(*map(set, ntiles[1:r // 2]))) if cc else 0
         outer, tail = (2, 3) if precision == "bf16x2" else (1, 1)
         words = 2 if precision == "bf16x2" else 1
-        g_size = 3 * 128 * 128 if gauss else 256 * 256
-        const_bytes = (12 * n_fft + 2 * words * (256 * 256 + (g_size if cc else 0)
+        per_nt = 3 * 128 * 8 if gauss else 256 * 16     # complex MACs a frame an n-tile
+        const_bytes = (12 * n_fft + 2 * words * (128 * 16 * real_nt + per_nt * cplx_cols
                                                  + map_nnz + n_out * n_coef))
-        macs = (outer * (2 * 128 * 256 + cc * g_size)
+        macs = (outer * (128 * 16 * real_nt + per_nt * cplx_nt)
                 + tail * (map_nnz + n_out * n_coef))
         # window; the inner DFT counted as real FFTs over the chunk axis;
-        # twiddles; Gauss sums; |X|^2 (and sqrt); the amplitude scale
+        # twiddles; Gauss sums; |X|^2 (and sqrt) of the entries computed;
+        # the amplitude scale
+        computed = 8 * (real_nt + cplx_nt)
         simt = (n_fft + 128 * 2.5 * r * math.log2(r) + 6 * 128 * cc
-                + (3 * 128 * cc if gauss else 0) + (4 if pre else 3) * kp + n_out)
+                + (3 * 128 * cc if gauss else 0) + (4 if pre else 3) * computed + n_out)
         b_ms = (in_bytes + out_bytes + const_bytes) / H100_BYTES_PER_S * 1e3
         o_ms = frames * (2 * macs / H100_BF16_FLOPS + simt / H100_F32_FLOPS) * 1e3
         return max(b_ms, o_ms), b_ms, o_ms
@@ -661,6 +701,8 @@ def main() -> None:
     flag_args = (1024, mel128, 40, batch * n_frames, 4 * xb.numel(), 4 * y.numel(), False)
     tb1, tb1_bytes, tb1_ops = tier_bound("bf16", True, *flag_args)
     tb2 = tier_bound("bf16x2", False, *flag_args)[0]
+    tb1_dense = tier_bound("bf16", True, *flag_args, dense=True)[0]
+    tb2_dense = tier_bound("bf16x2", False, *flag_args, dense=True)[0]
     print(f"[6 times bf16] {card} | median/p90 of 100: tier kernel 1-pass {t1_ms:.4f}/{t1_p90:.4f} ms, "
           f"x2 {t2_ms:.4f}/{t2_p90:.4f} ms, plain 1-pass {tplain_ms:.4f}/{tplain_p90:.4f} ms, "
           f"x2 {tplain2_ms:.4f}/{tplain2_p90:.4f} ms, bf16 library chain 1-pass "
@@ -669,7 +711,8 @@ def main() -> None:
           f"{tbatch_ms:.4f}/{tbatch_p90:.4f} ms | host per compute_batch {tbatch_host:.1f} us "
           f"| {audio_s / (t1_ms / 1e3):.0f} audio-s/s 1-pass kernel | bound 1-pass "
           f"{tb1 * 1e3:.2f} us (bytes {tb1_bytes * 1e3:.2f} us, operations {tb1_ops * 1e3:.2f} "
-          f"us), x2 {tb2 * 1e3:.2f} us")
+          f"us), x2 {tb2 * 1e3:.2f} us; the outer DFT counted dense: {tb1_dense * 1e3:.2f} and "
+          f"{tb2_dense * 1e3:.2f} us")
 
     # The chroma batch through each kernel, with a yardstick each.
     hplan, dplan = chroma_plans["HIGH"], chroma_plans["DEFAULT"]
@@ -694,17 +737,35 @@ def main() -> None:
         re, im = (fr @ cs4).float().chunk(2, dim=-1)
         return (torch.sqrt(re * re + im * im).to(bf16) @ fb44_16).float().transpose(-1, -2)
 
+    cs4_2 = split16(torch.cat(rdft_matrices(4096, hann(4096), torch.float32, dev), dim=1))
+    fb44_2 = split16(fb44_t.T.contiguous())
+
+    def chroma_library_bf16x2():
+        # the x2 tier's passes: 2 on the DFT, 3 on the filterbank
+        fr = F.pad(xc, (2048, 2048)).unfold(-1, 4096, 1024)
+        re, im = passes(fr, cs4_2, 2).chunk(2, dim=-1)
+        return passes(torch.sqrt(re * re + im * im), fb44_2, 3).transpose(-1, -2)
+
+    c_consts1 = ff.tier_constants(4096, hann(4096), fb44, None, "bf16", True, dev)
+    c_consts2 = ff.tier_constants(4096, hann(4096), fb44, None, "bf16x2", False, dev)
     with torch.no_grad():
         c32_ms, c32_p90 = time_ms(lambda: hplan._kernel_run(xc))
         c16_ms, c16_p90 = time_ms(lambda: dplan._kernel_run(xc))
         c2_ms, c2_p90 = time_ms(lambda: chroma_x2(xc))
         cplain_ms, cplain_p90 = time_ms(lambda: ff.fused_features_reference(
             xc, win4, fb44_t, "power", -80.0, "magnitude", None, True, 4096, 1024))
+        ctplain_ms, ctplain_p90 = time_ms(lambda: ff.fused_tier_features_reference(
+            xc, c_consts1, "power", -80.0, "magnitude", True, 1024))
+        ctplain2_ms, ctplain2_p90 = time_ms(lambda: ff.fused_tier_features_reference(
+            xc, c_consts2, "power", -80.0, "magnitude", True, 1024))
         clib_ms, clib_p90 = time_ms(chroma_library)
         clib16_ms, clib16_p90 = time_ms(chroma_library_bf16)
+        clib162_ms, clib162_p90 = time_ms(chroma_library_bf16x2)
     c_frames = xc.shape[0] * 216
     c_io = (4 * xc.numel(), 4 * xc.shape[0] * 12 * 216)
     cb16 = tier_bound("bf16", True, 4096, fb44, 0, c_frames, *c_io, True)[0]
+    cb16x2 = tier_bound("bf16x2", False, 4096, fb44, 0, c_frames, *c_io, True)[0]
+    cb16_dense = tier_bound("bf16", True, 4096, fb44, 0, c_frames, *c_io, True, dense=True)[0]
     c_bands = ff.mapping_bands(fb44)
     c_band_total = int((c_bands[:, 1] - c_bands[:, 0]).sum())
     c_bytes = (sum(c_io) + 4 * (3 * 4096 + fb44.size + 2 * 12)) / H100_BYTES_PER_S * 1e3
@@ -713,8 +774,12 @@ def main() -> None:
     print(f"[6 times chroma] {card} | (64, 220500) 4096/1024 44.1 kHz, median/p90 of 100: "
           f"f32 kernel {c32_ms:.4f}/{c32_p90:.4f} ms (bound {cb32 * 1e3:.2f} us, plain "
           f"{cplain_ms:.4f}/{cplain_p90:.4f} ms), tier kernel 1-pass {c16_ms:.4f}/{c16_p90:.4f} "
-          f"ms (bound {cb16 * 1e3:.2f} us), x2 {c2_ms:.4f}/{c2_p90:.4f} ms, library chain f32 "
-          f"{clib_ms:.4f}/{clib_p90:.4f} ms, bf16 {clib16_ms:.4f}/{clib16_p90:.4f} ms")
+          f"ms (bound {cb16 * 1e3:.2f} us; outer DFT counted dense {cb16_dense * 1e3:.2f} us; plain "
+          f"{ctplain_ms:.4f}/{ctplain_p90:.4f} ms), x2 {c2_ms:.4f}/{c2_p90:.4f} ms (bound "
+          f"{cb16x2 * 1e3:.2f} us, plain {ctplain2_ms:.4f}/{ctplain2_p90:.4f} ms), library chain "
+          f"f32 {clib_ms:.4f}/{clib_p90:.4f} ms, bf16 {clib16_ms:.4f}/{clib16_p90:.4f} ms, bf16 "
+          f"at x2 {clib162_ms:.4f}/{clib162_p90:.4f} ms | tier 1-pass vs the f32 chain: "
+          f"{'faster' if c16_ms < clib_ms else 'SLOWER'}")
 
     print(json.dumps({"kernels": [{
         "name": "fused_features",

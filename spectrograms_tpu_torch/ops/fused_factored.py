@@ -43,6 +43,7 @@ from ..dtypes import parse_dtype, resolve_device
 from ..errors import FftBackendError, InvalidInputError
 from . import f32_layout as fl32
 from . import factored_layout as fl
+from . import tier_layout as tl
 from .framing import frame_count, frame_signal
 
 __all__ = [
@@ -69,12 +70,8 @@ _METHOD_OPTIONS = {
     # "precision" so that it wins over the plan's DEFAULT/HIGH tier
     "x2": ("precision", "bf16x2"),
 }
-# Shared memory a block may use on sm_90 (227 KB), and an SM's (228 KB,
-# of which each resident block reserves 1 KB).
+# Shared memory a block may use on sm_90 (227 KB).
 _MAX_SMEM = fl32.MAX_SMEM
-_SM_SMEM = 233472
-# Frames per block of the tier kernel: one or two of the mma's 16-row tiles.
-_TIER_TILES = (32, 16)
 
 
 class KernelConst:
@@ -266,42 +263,6 @@ def fused_tier_features_reference(x, consts: TierConstants, amp, floor_db, pre_a
     return _amp_dct(feat, amp, floor_db, dct, lambda a, d: _tier_dot(a, *d, tail))
 
 
-def _tier_smem(tile_f: int, n_fft: int, gauss: bool, x2: bool, kd: int,
-               group: int = 1) -> int:
-    """Dynamic shared memory of the tier kernel (bf16 rows padded by 8):
-    A operands of ``group`` classes, P, and the DCT's input when ``kd``."""
-    r = n_fft // 128
-    ka = 128 if r == 2 else (384 if gauss else 256)
-    words = 2 if x2 else 1                    # hi, and lo at bf16x2
-    kp = (r // 2 + 1) * 128
-    feat = tile_f * (kd + 8) * 2 * words if kd else 0
-    return group * tile_f * (ka + 8) * 2 + tile_f * (kp + 8) * 2 * words + feat
-
-
-def _tier_layout(n_fft: int, gauss: bool, x2: bool, kd: int) -> tuple:
-    """(tile_f, group): the largest tile that lets two blocks share an SM,
-    else 16 frames alone on one; then as many classes per group (each group
-    loads the frames' samples once) as shared memory holds without losing a
-    block per SM: the mma chains wait on L2, and the warps of more blocks
-    hide that wait."""
-    for tile in _TIER_TILES:
-        if _tier_smem(tile, n_fft, gauss, x2, kd) <= _MAX_SMEM // 2:
-            break
-    else:
-        tile = 16
-        if _tier_smem(tile, n_fft, gauss, x2, kd) > _MAX_SMEM:
-            raise InvalidInputError(
-                f"a DCT over {kd} rows leaves no room in shared memory for the tier kernel"
-            )
-    blocks = lambda group: _SM_SMEM // (_tier_smem(tile, n_fft, gauss, x2, kd, group) + 1024)
-    classes = n_fft // 256 + 1
-    group = 1
-    while (group < classes and blocks(group + 1) == blocks(1)
-           and _tier_smem(tile, n_fft, gauss, x2, kd, group + 1) <= _MAX_SMEM):
-        group += 1
-    return tile, group
-
-
 def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
 
@@ -329,9 +290,9 @@ _SIGNATURES = {
 
 _TIER_SIGNATURES = {
     "fused_tier_features_launch": (
-        [ctypes.c_void_p] * 12
+        [ctypes.c_void_p] * 17
         + [ctypes.c_int, ctypes.c_longlong]
-        + [ctypes.c_int] * 15
+        + [ctypes.c_int] * 23
         + [ctypes.c_float, ctypes.c_void_p],
         ctypes.c_int,
     ),
@@ -567,53 +528,90 @@ def fused_tier_features(
     x2 = precision == "bf16x2"
 
     if dev.type == "cuda":
-        r = n_fft // 128
-        kp = (r // 2 + 1) * 128
+        # The mapping reads some outer n-tiles only: P holds those, and the
+        # filterbank runs over the nonzero k-steps of the compact mapping.
+        ntiles = tl.class_ntiles(fb, n_fft)
+        slots, kc = tl.power_slots(ntiles)
         # DCT: the filterbank's columns are the DCT's rows, 16 to a k-step.
         map_cols = _round_up(n_out, 16 if dct is not None else 8)
         kd = map_cols if dct is not None else 0
         rw, G = fl.outer_constants(n_fft, gauss)
         rw_f = _fragments(rw, 256, 256, x2, dev)
         g_f = _fragments(G, *G.shape, x2, dev)
-        map_f = _fragments(fl.fold_mapping(fb, n_fft), kp, map_cols, x2, dev)
+        compact = np.zeros((kc, map_cols))
+        compact[:, :n_out] = tl.compact_mapping(fb, n_fft, ntiles)
+        map_first, map_ks = tl.sparse_ksteps(compact)
+        frag = lambda a: torch.from_numpy(
+            tl.packed_fragments(a, map_first, map_ks).view(np.int16)).to(dev)
+        m_hi, m_lo = fl.split_bf16(compact)
+        map_f = (frag(m_hi), frag(m_lo) if x2 else None)
         dct_f = (None, None) if dct is None else _fragments(
             dct, kd, _round_up(dct.shape[1], 8), x2, dev)
         k = np.arange(n_fft, dtype=np.float64)
         twiddle_t = torch.tensor(
             np.stack([np.cos(2.0 * np.pi * k / n_fft), -np.sin(2.0 * np.pi * k / n_fft)], 1),
             dtype=torch.float32, device=dev)
-        tile_f, group = _tier_layout(n_fft, gauss, x2, kd)
-        smem = _tier_smem(tile_f, n_fft, gauss, x2, kd, group)
+        ints = lambda a: torch.tensor(np.ascontiguousarray(a, dtype=np.int32), device=dev)
+        first_t, ks_t, slots_t = ints(map_first), ints(map_ks), ints(slots)
+        p_cols = 8 * int((slots >= 0).sum())
         ptr = lambda t: None if t is None else t.data_ptr()
         eps = 10.0 ** (floor_db / 10.0)
+        blocks = {}
 
-    def launch(xb):
+        def block(tile_f):
+            """(layout, items, groups) of a tile of ``tile_f`` frames (None:
+            the layout's own choice)."""
+            if tile_f not in blocks:
+                lay = tl.tier_layout(n_fft, hop, gauss, x2, kc, kd, tile_f)
+                items, first = tl.outer_items(ntiles, lay.groups, lay.tile_f,
+                                              tl.block_threads(n_fft) // 32)
+                table = [v for (c0, c1), f in zip(lay.groups, first) for v in (c0, c1, f)]
+                blocks[tile_f] = (lay, ints(items if len(items) else np.zeros((1, 4))),
+                                  ints(table + [0, 0, first[-1]]))
+            return blocks[tile_f]
+
+        tile = block(None)[0].tile_f
+
+    def launch(xb, lib=None, tile_f=None):
+        """Launch on (batch, n) ``xb``. ``lib`` is another build of the
+        source (a stage variant), whose launches are not counted; ``tile_f``
+        overrides the tile (8 or 16 frames)."""
         from ._build import load_library
 
-        lib = load_library("fused_tier_features", _TIER_SIGNATURES)
+        own = lib is None
+        lib = load_library("fused_tier_features", _TIER_SIGNATURES) if own else lib
+        lay, items_t, groups_t = block(tile_f)
         batch, n = xb.shape
         nf = frame_count(n, n_fft, hop, centre)
         out = torch.empty((batch, n_final, nf), dtype=torch.float32, device=dev)
         with torch.cuda.device(xb.device):
             rc = lib.fused_tier_features_launch(
                 xb.data_ptr(), consts.window.data_ptr(), twiddle_t.data_ptr(),
-                *map(ptr, rw_f + g_f + map_f + dct_f), out.data_ptr(),
+                *map(ptr, rw_f + g_f), items_t.data_ptr(), groups_t.data_ptr(),
+                slots_t.data_ptr(), first_t.data_ptr(), ks_t.data_ptr(),
+                *map(ptr, map_f + dct_f), out.data_ptr(),
                 batch, n, n_fft.bit_length() - 1, hop, n_fft // 2 if centre else 0, nf,
                 n_out, 0 if dct is None else n_final, map_cols // 8,
-                0 if dct is None else _round_up(n_final, 8) // 8,
-                _AMPS[amp], _PRE_AMPS[pre_amp], int(x2), int(gauss), tile_f, group, smem, eps,
+                0 if dct is None else _round_up(n_final, 8) // 8, kc, p_cols, kd,
+                _AMPS[amp], _PRE_AMPS[pre_amp], int(x2), int(gauss), lay.tile_f,
+                int(lay.staged), len(lay.groups),
+                lay.p_off, lay.feat_off, lay.ar_off, lay.ac_off, lay.smem, eps,
                 torch.cuda.current_stream(xb.device).cuda_stream,
             )
         if rc != 0:
             msg = lib.fused_tier_features_error_string(rc).decode()
             raise FftBackendError(f"fused_tier_features kernel launch failed: {msg} ({rc})")
-        fused_tier_features.launches += 1
+        if own:
+            fused_tier_features.launches += 1
         return out
 
     def plain(x):
         return fused_tier_features_reference(x, consts, amp, floor_db, pre_amp, centre, hop)
 
-    return _runner(dev, plain, launch)
+    run = _runner(dev, plain, launch)
+    if dev.type == "cuda":
+        run.launch, run.tile_f = launch, tile
+    return run
 
 
 fused_tier_features.launches = 0

@@ -1,66 +1,77 @@
-"""Time the tier kernel's stages on one GPU, by compiling them out.
+"""Time the tier kernel (``csrc/fused_tier_features.cu``) on one GPU: against
+an older tree's, by stage, by register cap and by tile.
 
 Run from the repository root::
 
-    python3 -m spectrograms_tpu_torch.tools.tier_stage_times
+    python3 -m spectrograms_tpu_torch.tools.tier_stage_times [--parent DIR]
 
-``ncu`` is not available everywhere the kernel is measured, so this splits
-``csrc/fused_tier_features.cu`` by subtraction: it builds variants of the
-source with a stage compiled out (``SKIP_INNER``: the inner DFT into A;
-``SKIP_OUTER``: the outer DFT into P; ``SKIP_TAIL``: filterbank, amplitude
-and DCT), one ``nvcc`` each, all started together, into
-``build/spectrograms_tpu_torch/stages/``. It then times each variant
-through the normal runner (CUDA events, median of 30 after warm-up, the
-L2 flushed before each run) at the flagship shape (1-pass Gauss, 1-pass
-packed, x2) and on the chroma batch, with the f32 kernel's flagship time
-as the yardstick of the call. A variant's output is meaningless; only its
-time is read. Differences between variants are the stages' costs, up to
-the overlap of blocks on an SM. The process's own build of the kernel,
-and its launch count, are restored when the timings end.
+With ``--parent DIR`` (an unpacked older tree of this repository, e.g. from
+``git archive``) it times that tree's tier kernel and this tree's in turns,
+parent, this, this, parent, each in a process of its own that imports the
+package from its tree, builds its kernel there and loads it through its own
+``ctypes`` handle; each turn prints the SM clock and power after it. Then,
+in this process, it times variants of this tree's source, each built by one
+``nvcc`` (all started together) into ``build/spectrograms_tpu_torch/
+tier_stages/`` and launched through the runner's ``launch(x, lib=...)``,
+which does not count such launches: stages compiled out (``TIER_SKIP_INNER``:
+the inner FFT into A; ``TIER_SKIP_OUTER``: the outer DFT into P;
+``TIER_SKIP_TAIL``: filterbank, amplitude and DCT; and their pairs) and
+a register cap of 85 (``TIER_MIN_BLOCKS=3``: 256-thread blocks an SM; the
+default is 2, 128 registers),
+and a build that counts each block's SM clocks between its barriers by
+phase (``TIER_CLOCKS``: staging, inner FFT, outer DFT, filterbank, DCT),
+printed as each phase's share of a block's time, and splits a warp's outer
+DFT items at 1 pass into the wait for their B fragments, the products and
+the power stores; and the kernel at each tile (``launch(x, tile_f=...)``), checked bit-equal
+to the default tile's output. A stage variant's output is meaningless; only
+its time is read. Differences between variants are the stages' costs, up to
+the overlap of blocks on an SM.
+
+Shapes: the flagship MFCC batch (32 x 160000, 1024/256, mel-128 dB, DCT-40)
+at 1 pass Gauss, 1 pass packed and x2 (packed), and the chroma batch (64 x
+220500, 4096/1024, 44.1 kHz, pre_amp magnitude) at 1 pass Gauss and x2;
+white noise from seed 0. Times: CUDA events, median and p90 of 100 after
+warm-up, the L2 flushed and the device held in a ~1 ms spin before each run,
+so that the host's enqueue stays out of the reading.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
+import json
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
 
+SPIN_CYCLES = 2_000_000  # ~1 ms at the H100's 1980 MHz SM clock
 VARIANTS = {
-    "full": [],
-    "no_inner": ["SKIP_INNER"],
-    "no_outer": ["SKIP_OUTER"],
-    "no_tail": ["SKIP_TAIL"],
-    "inner_only": ["SKIP_OUTER", "SKIP_TAIL"],
-    "none": ["SKIP_INNER", "SKIP_OUTER", "SKIP_TAIL"],
+    "no_inner": ["TIER_SKIP_INNER"],
+    "no_outer": ["TIER_SKIP_OUTER"],
+    "no_tail": ["TIER_SKIP_TAIL"],
+    "inner_only": ["TIER_SKIP_OUTER", "TIER_SKIP_TAIL"],
+    "none": ["TIER_SKIP_INNER", "TIER_SKIP_OUTER", "TIER_SKIP_TAIL"],
+    "blocks3": ["TIER_MIN_BLOCKS=3"],
+    "clocks": ["TIER_CLOCKS"],
 }
+PHASES = ("staging", "inner FFT", "outer DFT", "filterbank", "DCT")
+SHAPES = ("flagship 1-pass Gauss", "flagship 1-pass packed", "flagship x2",
+          "chroma 1-pass Gauss", "chroma x2")
 
 
-def _insert(src: str, anchor: str, text: str, after: bool = True) -> str:
-    if src.count(anchor) != 1:
-        raise SystemExit(f"tier_stage_times: the kernel source changed; no single {anchor!r}")
-    return src.replace(anchor, anchor + text if after else text + anchor)
-
-
-def staged_source(src: str) -> str:
-    """The kernel source with each stage behind a SKIP_* guard."""
-    src = _insert(src, "int n, int b, int f0) {\n", "#ifdef SKIP_INNER\n  return;\n#endif\n")
-    src = _insert(src, "int ldp, int c0, int n) {\n", "#ifdef SKIP_OUTER\n  return;\n#endif\n")
-    src = _insert(src, "  // 2. Folded filterbank", "#ifndef SKIP_TAIL\n", after=False)
-    src = _insert(src, "  if (!with_dct) return;  // uniform across the block\n",
-                  "#endif\n#ifndef SKIP_TAIL\n")
-    return _insert(src, "\n}\n\ntemplate <int R>\nint launch(", "\n#endif", after=False)
-
-
-def time_ms(fn, reps: int = 30) -> float:
+def time_ms(fn, reps: int = 100) -> tuple:
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
-    for _ in range(3):
+    for _ in range(5):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        # ~1 ms of device spin: the host enqueues fn() before the start
+        # event fires, so its enqueue time stays out of the reading
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -68,84 +79,167 @@ def time_ms(fn, reps: int = 30) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    return float(np.median(times)), float(np.percentile(times, 90))
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        print("tier_stage_times: needs a GPU", file=sys.stderr)
-        sys.exit(1)
+def card(query: str = "name,power.limit") -> str:
+    return subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+
+
+def clocks() -> str:
+    """SM clock, its maximum, power draw and temperature, read now."""
+    return card("clocks.sm,clocks.max.sm,power.draw,temperature.gpu")
+
+
+def runners() -> dict:
+    """{shape: (runner, input)} of the package imported now."""
     import spectrograms_tpu_torch as tg
     from spectrograms_tpu_torch.mfcc import _dct_lifter_matrix
-    from spectrograms_tpu_torch.ops import _build
     from spectrograms_tpu_torch.ops import fused_factored as ff
     from spectrograms_tpu_torch.ops.filterbanks import chroma_filterbank, mel_filterbank
 
-    out = _build.BUILD_DIR / "stages"
+    rng = np.random.default_rng(0)
+    xb = torch.from_numpy(rng.standard_normal((32, 160000)).astype(np.float32)).cuda()
+    xc = torch.from_numpy(rng.standard_normal((64, 220500)).astype(np.float32)).cuda()
+    hann = lambda n: tuple(tg.make_window(tg.WindowType.hanning, n).tolist())
+    mel = ff.KernelConst(mel_filterbank(16000.0, 1024, tg.MelParams(128, 0.0, 8000.0,
+                                                                    tg.MelNorm.SLANEY)))
+    dct = ff.KernelConst(_dct_lifter_matrix(128, 40, 22))
+    chroma = ff.KernelConst(chroma_filterbank(44100.0, 4096, tg.ChromaParams()))
+    flagship = lambda **kw: ff.fused_factored_features(
+        1024, 256, hann(1024), mel, amp="decibels", dct_key=dct, **kw)
+    chroma_run = lambda **kw: ff.fused_factored_features(
+        4096, 1024, hann(4096), chroma, amp="power", pre_amp="magnitude", **kw)
+    return dict(zip(SHAPES, (
+        (flagship(precision="bf16"), xb),
+        (flagship(precision="bf16", gauss=False), xb),
+        (flagship(precision="bf16x2"), xb),
+        (chroma_run(precision="bf16"), xc),
+        (chroma_run(precision="bf16x2"), xc),
+    )))
+
+
+def worker(root: str) -> None:
+    """Time the tier kernel of the tree at ``root``; print one JSON line."""
+    sys.path.insert(0, str(Path(root).resolve()))
+    import spectrograms_tpu_torch
+
+    times = {}
+    with torch.no_grad():
+        for shape, (run, x) in runners().items():
+            times[shape] = time_ms(lambda: run(x))
+    print(json.dumps({"root": root, "package": spectrograms_tpu_torch.__file__,
+                      "card": card(), "clocks": clocks(), **times}), flush=True)
+
+
+def a_b(parent: str) -> None:
+    here = str(Path(__file__).resolve().parents[2])
+    results = []
+    for label, root in (("parent", parent), ("change", here), ("change", here),
+                        ("parent", parent)):
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--worker", root],
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise SystemExit(f"{label} run failed:\n{proc.stdout}\n{proc.stderr}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        results.append((label, res))
+        row = " | ".join(f"{s} {res[s][0]:.4f}/{res[s][1]:.4f}" for s in SHAPES)
+        print(f"[tier a/b] {label} ({res['card']}), median/p90 ms of 100: {row} | after: "
+              f"{res['clocks']}", flush=True)
+    for shape in SHAPES:
+        par = [r[shape][0] for label, r in results if label == "parent"]
+        chg = [r[shape][0] for label, r in results if label == "change"]
+        print(f"[tier a/b] {shape}: parent/change median ratio {np.mean(par) / np.mean(chg):.2f}"
+              f" (parent {par}, change {chg}; change faster in both turns: "
+              f"{max(chg) < min(par)})", flush=True)
+
+
+def variants_and_tiles() -> None:
+    sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+    from spectrograms_tpu_torch.ops import _build
+    from spectrograms_tpu_torch.ops import fused_factored as ff
+
+    out = _build.BUILD_DIR / "tier_stages"
     out.mkdir(parents=True, exist_ok=True)
-    source = out / "fused_tier_features_staged.cu"
-    source.write_text(staged_source((_build._CSRC / "fused_tier_features.cu").read_text()))
-    flags = [f for f in _build.NVCC_FLAGS if f != "-Xptxas=-v"]
+    source = _build._CSRC / "fused_tier_features.cu"
     nvcc = _build.find_nvcc()
-    jobs = {
-        name: subprocess.Popen(
-            [nvcc, *flags, *(f"-D{d}" for d in defs), "-o", str(out / f"lib{name}.so"),
-             str(source)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for name, defs in VARIANTS.items()
-    }
+    jobs = {name: subprocess.Popen(
+        [nvcc, *_build.NVCC_FLAGS, *(f"-D{d}" for d in defs), "-o", str(out / f"lib{name}.so"),
+         str(source)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, defs in VARIANTS.items()}
     libs = {}
     for name, job in jobs.items():
         log = job.communicate()[0]
         if job.returncode != 0:
             raise SystemExit(f"nvcc failed for {name}:\n{log}")
+        ptxas = " ".join(line.split(":", 1)[-1].strip() for line in log.splitlines()
+                         if "registers" in line or "spill" in line)
+        print(f"[tier variants] {name}: {ptxas}", flush=True)
         lib = ctypes.CDLL(str(out / f"lib{name}.so"))
         for fn, (argtypes, restype) in ff._TIER_SIGNATURES.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = restype
         libs[name] = lib
+    clocked = libs.pop("clocks")
+    clocked.fused_tier_features_clocks.argtypes = [ctypes.c_void_p]
+    clocked.fused_tier_features_clocks.restype = ctypes.c_int
+    counts = (ctypes.c_ulonglong * (len(PHASES) + 3))()
 
-    rng = np.random.default_rng(0)
-    xb = torch.from_numpy(rng.standard_normal((32, 160000)).astype(np.float32)).cuda()
-    xc = torch.from_numpy(rng.standard_normal((64, 220500)).astype(np.float32)).cuda()
-    mel = ff.KernelConst(mel_filterbank(16000.0, 1024, tg.MelParams(128, 0.0, 8000.0,
-                                                                    tg.MelNorm.SLANEY)))
-    dct = ff.KernelConst(_dct_lifter_matrix(128, 40, 22))
-    chroma = ff.KernelConst(chroma_filterbank(44100.0, 4096, tg.ChromaParams()))
-    hann = lambda n: tuple(tg.make_window(tg.WindowType.hanning, n).tolist())
-    flagship = lambda **kw: ff.fused_factored_features(
-        1024, 256, hann(1024), mel, amp="decibels", dct_key=dct, **kw)
-    runs = {
-        "flagship MFCC bf16 Gauss": (flagship(precision="bf16"), xb),
-        "flagship MFCC bf16 packed": (flagship(precision="bf16", gauss=False), xb),
-        "flagship MFCC bf16x2": (flagship(precision="bf16x2"), xb),
-        "chroma 4096/1024 bf16 Gauss": (ff.fused_factored_features(
-            4096, 1024, hann(4096), chroma, amp="power", pre_amp="magnitude",
-            precision="bf16"), xc),
-    }
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip()
-    print(f"[tier stages] {card} | median ms of 30 per variant")
-    # Each variant runs under the kernel's name for the length of its timing
-    # only; the built kernel and the launch count are put back afterwards.
-    saved_lib = _build._libs.get("fused_tier_features")
-    saved_launches = ff.fused_tier_features.launches
-    try:
-        with torch.no_grad():
-            for label, (run, x) in runs.items():
-                row = []
-                for name in VARIANTS:
-                    _build._libs["fused_tier_features"] = libs[name]
-                    row.append(f"{name} {time_ms(lambda: run(x)):.4f}")
-                print(f"[tier stages] {label}: " + " | ".join(row), flush=True)
-    finally:
-        if saved_lib is None:
-            _build._libs.pop("fused_tier_features", None)
-        else:
-            _build._libs["fused_tier_features"] = saved_lib
-        ff.fused_tier_features.launches = saved_launches
+    print(f"[tier stages] {card()} | median/p90 ms of 100", flush=True)
     with torch.no_grad():
-        f32 = flagship()
-        print(f"[tier stages] f32 kernel, flagship MFCC: {time_ms(lambda: f32(xb)):.4f}")
+        for shape, (run, x) in runners().items():
+            row = [f"full {'/'.join(f'{v:.4f}' for v in time_ms(lambda: run(x)))}"]
+            for name, lib in libs.items():
+                ms = time_ms(lambda: run.launch(x, lib=lib))
+                row.append(f"{name} {ms[0]:.4f}/{ms[1]:.4f}")
+            print(f"[tier stages] {shape}: " + " | ".join(row), flush=True)
+            clocked.fused_tier_features_clocks(ctypes.addressof(counts))   # reset
+            for _ in range(10):
+                run.launch(x, lib=clocked)
+            torch.cuda.synchronize()
+            if clocked.fused_tier_features_clocks(ctypes.addressof(counts)) != 0:
+                raise SystemExit("reading the clock counters failed")
+            total = sum(counts[:len(PHASES)])
+            items = sum(counts[len(PHASES):])
+            split = ", ".join(f"{name} {100.0 * c / max(items, 1):.1f} %" for name, c in zip(
+                ("B fragments' wait", "products", "power stores"), counts[len(PHASES):]))
+            print(f"[tier clocks] {shape}: share of a block's SM clocks by phase: " + ", ".join(
+                f"{name} {100.0 * c / total:.1f} %" for name, c in zip(PHASES, counts))
+                + f" ({total / 10:.4g} clocks a launch, summed over blocks); a warp's outer "
+                f"DFT items at 1 pass: {split}", flush=True)
+            ref = run(x)
+            row = []
+            for tile in (16, 8):
+                try:
+                    got = run.launch(x, tile_f=tile)
+                except Exception as exc:   # a tile that does not fit is reported
+                    row.append(f"tile {tile}: {type(exc).__name__}")
+                    continue
+                same = bool(torch.equal(got, ref))
+                ms = time_ms(lambda: run.launch(x, tile_f=tile))
+                row.append(f"tile {tile} {ms[0]:.4f}/{ms[1]:.4f}{'' if same else ' DIFFERS'}")
+                if not same:
+                    raise SystemExit(f"tile {tile} output differs from the default tile's")
+            print(f"[tier tiles] {shape}: " + " | ".join(row) + f" | after: {clocks()}",
+                  flush=True)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", help="an older tree to time in turns with this one")
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("tier_stage_times: needs a GPU", file=sys.stderr)
+        sys.exit(1)
+    if args.worker:
+        worker(args.worker)
+        return
+    if args.parent:
+        a_b(args.parent)
+    variants_and_tiles()
 
 
 if __name__ == "__main__":

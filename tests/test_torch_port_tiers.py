@@ -24,6 +24,7 @@ from spectrograms_tpu.ops.filterbanks import chroma_filterbank, mel_filterbank
 from spectrograms_tpu_torch.mfcc import MfccPlan as PortMfccPlan
 from spectrograms_tpu_torch.ops import factored_layout as fl
 from spectrograms_tpu_torch.ops import fused_factored as tff
+from spectrograms_tpu_torch.ops import tier_layout as tl
 from tests.conftest import noise
 
 SR = 16000.0
@@ -168,24 +169,30 @@ def test_mma_b_fragments_follow_the_mma_layout():
 @pytest.mark.parametrize("gauss", [True, False])
 @pytest.mark.parametrize("x2", [True, False])
 def test_tier_tiles_fit_in_shared_memory(n_fft, gauss, x2):
-    classes = n_fft // 256 + 1
+    """The tier kernel's block (``tier_layout``) at every n_fft, form and
+    tier, with the power tile at its largest (every class, every n-tile)
+    and a DCT over 0, 128 or 2064 rows: it fits, its class groups cover the
+    complex classes in order, and no fewer groups would fit."""
+    r = n_fft // 128
+    kc = (r // 2 + 1) * 128
     for kd in (0, 128, 2064 if n_fft < 4096 else 0):
-        tile, group = tff._tier_layout(n_fft, gauss, x2, kd)
-        assert tile in tff._TIER_TILES and 1 <= group <= classes
-        smem = tff._tier_smem(tile, n_fft, gauss, x2, kd, group)
-        assert smem <= tff._MAX_SMEM
-        blocks = lambda s: tff._SM_SMEM // (s + 1024)
-        base = tff._tier_smem(tile, n_fft, gauss, x2, kd)
-        assert blocks(smem) == blocks(base)   # grouping costs no block per SM
-        if group < classes:                   # ...and one more class would
-            more = tff._tier_smem(tile, n_fft, gauss, x2, kd, group + 1)
-            assert blocks(more) < blocks(base) or more > tff._MAX_SMEM
-    # The flagship: 1 pass, 32 frames, a class at a time, three blocks an
-    # SM; x2, 16 frames, three classes at a time, three blocks an SM.
-    assert tff._tier_layout(1024, True, False, 128) == (32, 1)
-    assert tff._tier_layout(1024, False, True, 128) == (16, 3)
+        for hop in (n_fft // 4, n_fft):
+            lay = tl.tier_layout(n_fft, hop, gauss, x2, kc, kd)
+            assert lay.tile_f in tl.TILES and lay.smem <= tl.MAX_SMEM and lay.blocks >= 1
+            cover = [c for c0, c1 in lay.groups for c in range(c0, c1)]
+            assert cover == list(range(1, r // 2))
+            assert lay.ar_off % 16 == lay.ac_off % 16 == lay.p_off % 16 == lay.feat_off % 16 == 0
+            if len(lay.groups) > 1:            # one group fewer does not fit
+                fewer = -(-(r // 2 - 1) // (len(lay.groups) - 1))
+                assert tl._layout(16, n_fft, hop, gauss, x2, kc, kd, fewer,
+                                  lay.staged).smem > tl.MAX_SMEM
+    # The flagship at 1 pass: 16 frames, every class in one group, the span
+    # staged (and reused by P), three blocks an SM; at x2 (packed) three too.
+    for g, x in ((True, False), (False, True)):
+        lay = tl.tier_layout(1024, 256, g, x, 512, 128)
+        assert (lay.tile_f, lay.groups, lay.staged, lay.blocks) == (16, ((1, 4),), True, 3)
     with pytest.raises(tg.InvalidInputError):
-        tff._tier_layout(4096, True, True, 4096)
+        tl.tier_layout(4096, 1024, True, True, 2176, 4096)
 
 
 # ---- the plain version against the JAX kernel, tier by tier ---------------
