@@ -40,7 +40,18 @@ beside this run's:
    yardsticks (the f32 ``torch.stft`` chain, bf16 chains at 1 pass and x2);
    and each kernel's bound (the tier kernel's over the outer n-tiles that a
    mapping row reads, with the dense count of earlier runs beside it);
-7. the ``kernels`` JSON line, the card line, and the result line
+7. the serving path (``serving_phase``): 256 PCM16 WAVs of 10 s at 16 kHz
+   served by ``FeaturePipeline`` through the native loader with each
+   transport (float32, int16, μ-law, int16 with preload, int16 with
+   pipelined uploads), each batch held against ``compute_batch`` of the
+   rows ``read_wav`` gives and the f32 kernel launched once a batch; the
+   flagship MFCC at ``precision=DEFAULT`` through the int16 transport;
+   a multirate ``FeatureSet`` (config 9's MFCC, config 4's chroma) at
+   44.1 kHz against its members alone and their full-rate plans; both
+   kernels against their plain versions at the decimated inner geometries
+   512/128 and 1024/256; ``StreamingSpectrogram`` against ``compute``;
+   audio-s/s end to end, of the loader alone and of one step's device time;
+8. the ``kernels`` JSON line, the card line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero, printing no result, when CUDA is unavailable. Imports
@@ -53,7 +64,10 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -185,6 +199,308 @@ def twin_err(out, ref, kind: str):
             f"rtol needed at atol {TWIN_ATOL:g}*max|ref|")
 
 
+def f32_bound(x_numel, y_numel, frames, n_fft, mapping, dct, pre):
+    """(bound ms, bytes ms, ops ms) of the f32 kernel: each input read once,
+    the output written once; per frame the window, a real FFT (2.5 N log2 N),
+    |X|^2 (and sqrt), the mapping over each row's nonzero band, the
+    amplitude scale and a dense DCT."""
+    from spectrograms_tpu_torch.ops import fused_factored as ff
+
+    bands = ff.mapping_bands(mapping)
+    band_total = int((bands[:, 1] - bands[:, 0]).sum())
+    n_out, n_bins = mapping.shape
+    n_coef = 0 if dct is None else dct.shape[1]
+    bytes_moved = 4 * (x_numel + y_numel + 2 * n_fft + mapping.size
+                       + (0 if dct is None else dct.size) + 2 * n_out)
+    flops = frames * (n_fft + 2.5 * n_fft * math.log2(n_fft) + (4 if pre else 3) * n_bins
+                      + 2 * band_total + n_out + 2 * n_out * n_coef)
+    b_ms = bytes_moved / H100_BYTES_PER_S * 1e3
+    o_ms = flops / H100_F32_FLOPS * 1e3
+    return max(b_ms, o_ms), b_ms, o_ms
+
+
+def serving_phase(tg, ff, dev, card, tier_bound) -> None:
+    """Phase 7: the serving path at the sizes users run (see the module
+    docstring). Each check prints its reading before a failure ends the run."""
+    from spectrograms_tpu_torch.mfcc import _dct_lifter_matrix
+    from spectrograms_tpu_torch.ops.filterbanks import chroma_filterbank, mel_filterbank
+    from spectrograms_tpu_torch.runtime import (AudioBatchLoader, StreamingSpectrogram,
+                                                read_wav, write_wav)
+
+    n_files, n, bs = 256, 160000, 32
+    srng = np.random.default_rng(SEED + 5)
+    counters = (ff.fused_factored_features, ff.fused_tier_features)
+
+    def zero():
+        for c in counters:
+            c.launches = 0
+
+    def check(label, ok, reading):
+        print(f"[7 {label}] {reading} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"serving phase: {label}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        paths = []
+        for i in range(n_files):
+            path = Path(tmp) / f"clip_{i:04d}.wav"
+            write_wav(path, (0.1 * srng.standard_normal(n)).astype(np.float32), int(SR), bits=16)
+            paths.append(str(path))
+        rows = np.stack([read_wav(path, mono=True)[0] for path in paths])
+        rows_dev = torch.from_numpy(rows).to(dev)
+        probe = AudioBatchLoader(paths, bs, n, expected_sample_rate=int(SR))
+        check("setup", probe._lib is not None and rows.shape == (n_files, n),
+              f"{n_files} PCM16 WAVs of 10 s at 16 kHz written and read back in "
+              f"{time.perf_counter() - t0:.2f} s; the loader's native path in use: "
+              f"{probe._lib is not None}")
+
+        # ---- 7a. config 7: mel-dB serving from files ----------------------
+        mel_p = tg.MelParams(128, 0.0, 8000.0, tg.MelNorm.SLANEY)
+        plan = tg.SpectrogramPlan(tg.SpectrogramParams(tg.StftParams(1024, 256), SR),
+                                  tg.FreqScale.MEL, tg.AmpScale.DECIBELS, scale_params=mel_p,
+                                  log_params=tg.LogParams(-80.0), dtype="float32")
+        with torch.no_grad():
+            refs = [plan.compute_batch(rows_dev[b:b + bs]) for b in range(0, n_files, bs)]
+        audio_s = n_files * n / SR
+        configs = [("float32", dict(transport="float32"), False),
+                   ("int16", dict(transport="int16"), False),
+                   ("ulaw", dict(transport="ulaw"), False),
+                   ("int16+preload", dict(transport="int16"), True),
+                   ("int16+pipeline_uploads", dict(transport="int16", pipeline_uploads=True),
+                    False)]
+        served, pipes, rates = {}, {}, {}
+        for label, kw, preload in configs:
+            pipe = tg.FeaturePipeline(plan, batch_size=bs, target_seconds=10.0, **kw)
+            pipes[label] = pipe
+            pipe.warm_preload()
+            zero()
+            batches = list(pipe.run(paths, preload=preload))  # the warm pass, checked
+            torch.cuda.synchronize()
+            launches = [c.launches for c in counters]
+            feats = [b.features for b in batches]
+            served[label] = feats
+            mask_ok = all(np.array_equal(b.frame_mask, pipe._mask_from(
+                b.lengths, 1024, 256, True, pipe._n_frames)) and bool((b.lengths == n).all())
+                for b in batches)
+            if label == "ulaw":
+                live = [r > -60.0 for r in refs]
+                err = max(float((f - r).abs()[m].max()) for f, r, m in zip(feats, refs, live))
+                ok, what = err < 3.0, f"max|err| on bins above -60 dB {err:.3e} dB (limit 3.0)"
+            else:
+                err = max(float((f - r).abs().max()) for f, r in zip(feats, refs))
+                ok, what = err == 0.0, f"max|err| {err:.3e} (limit 0: exact)"
+            reps = []
+            for _ in range(3):
+                reps.append(pipe.throughput_report(paths, preload=preload))
+            timed_launches = [c.launches for c in counters]
+            rates[label] = float(np.median([r["audio_s_per_s"] for r in reps]))
+            extra = ""
+            if preload:
+                extra = f", preload phases {reps[-1]['preload_phases']}"
+            check(f"serve {label}", ok and mask_ok and len(batches) == 8 and launches == [8, 0]
+                  and timed_launches == [32, 0],
+                  f"{card} | {len(batches)} batches of {tuple(feats[0].shape)} vs compute_batch "
+                  f"of read_wav rows: {what}; masks as _mask_from: {mask_ok}; launches f32/tier "
+                  f"{launches[0]}/{launches[1]} (want 8/0), after 3 more passes "
+                  f"{timed_launches[0]}/{timed_launches[1]} (want 32/0) | throughput_report "
+                  f"median of 3 {rates[label]:.1f} audio-s/s (passes: "
+                  f"{', '.join(str(r['audio_s_per_s']) for r in reps)}){extra}")
+        i16_exact = all(torch.equal(a, b) for a, b in zip(served["float32"], served["int16"]))
+        check("int16 vs float32", i16_exact, f"int16 transport bit-equal to float32: {i16_exact}")
+        del served
+
+        loader_rates = {}
+        for dtype in ("float32", "int16", "ulaw"):
+            walls = []
+            for _ in range(4):  # one warm pass, then three timed
+                t = time.perf_counter()
+                for data, lengths, _ in AudioBatchLoader(
+                        paths, bs, n, expected_sample_rate=int(SR), dtype=dtype).iter_borrowed():
+                    pass
+                walls.append(time.perf_counter() - t)
+            loader_rates[dtype] = audio_s / float(np.median(walls[1:]))
+        steps = {}
+        for label in ("float32", "int16", "ulaw"):
+            pipe = pipes[label]
+            loader = AudioBatchLoader(paths[:bs], bs, n, dtype=pipe._loader_dtype)
+            (data, _, _), = list(loader.iter_with_rates())
+            xb = torch.from_numpy(data).to(dev)
+            steps[label] = time_ms(lambda: pipe._step(xb))
+        print(f"[7 serve rates] {card} | end to end (median of 3): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in rates.items())
+              + " audio-s/s | the loader alone (iter_borrowed, no copy, no compute; median of "
+              "3 after one warm pass): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in loader_rates.items())
+              + " audio-s/s | one step on the card (dequant + kernel, (32, 160000), median/p90 "
+              "of 100): " + ", ".join(f"{k} {v[0]:.4f}/{v[1]:.4f} ms" for k, v in steps.items())
+              + f" = {bs * n / SR / (steps['int16'][0] / 1e3):.0f} audio-s/s at int16")
+        del refs
+
+        # ---- 7b. the flagship MFCC at DEFAULT through the int16 transport --
+        mkw = dict(mel_params=mel_p, mfcc_params=tg.MfccParams(40, include_c0=True, lifter=22),
+                   log_params=tg.LogParams(-80.0), dtype="float32")
+        tier_plan = tg.MfccPlan(tg.StftParams(1024, 256), SR, precision=tg.Precision.DEFAULT,
+                                **mkw)
+        exact_plan = tg.MfccPlan(tg.StftParams(1024, 256), SR, method="matmul",
+                                 precision=tg.Precision.HIGHEST, **mkw)
+        pipe = tg.FeaturePipeline(tier_plan, batch_size=bs, target_seconds=10.0,
+                                  transport="int16")
+        pipe.warm_preload()
+        zero()
+        batches = list(pipe.run(paths))
+        torch.cuda.synchronize()
+        launches = [c.launches for c in counters]
+        worst, limit_ok = 0.0, True
+        with torch.no_grad():
+            for i, b in enumerate(batches):
+                err, lim, ok = tier_err(b.features, exact_plan.compute_batch(
+                    rows_dev[i * bs:(i + 1) * bs]), "mfcc", "bf16")
+                worst, limit_ok = max(worst, err / lim), limit_ok and ok
+        rate = float(np.median([pipe.throughput_report(paths)["audio_s_per_s"]
+                                for _ in range(3)]))
+        check("flagship DEFAULT int16", limit_ok and launches == [0, 8] and len(batches) == 8,
+              f"{card} | MfccPlan(precision=DEFAULT) served int16, {len(batches)} batches of "
+              f"{tuple(batches[0].features.shape)}; vs HIGHEST matmul worst max|err| "
+              f"{worst:.3f} of the tier limit ({MFCC_TIER_LIMITS['bf16']:g}*max|ref|); launches "
+              f"f32/tier {launches[0]}/{launches[1]} (want 0/8) | {rate:.1f} audio-s/s "
+              f"(median of 3)")
+        del batches, rows_dev
+
+        # ---- 7e. streaming over 10 s of the config-7 plan ------------------
+        strm = StreamingSpectrogram(plan, block_frames=64)
+        parts = [strm.process(rows[0, s:s + 1600]) for s in range(0, n, 1600)] + [strm.finish()]
+        streamed = torch.from_numpy(np.concatenate(parts, axis=1)).to(dev)
+        with torch.no_grad():
+            offline = plan.compute(torch.from_numpy(rows[0]).to(dev)).data
+        excess = float(((streamed - offline).abs() - 1e-4 - 1e-4 * offline.abs()).max())
+        check("streaming", tuple(streamed.shape) == tuple(offline.shape) and excess <= 0.0,
+              f"StreamingSpectrogram(64-frame blocks, 1600-sample chunks) {tuple(streamed.shape)}"
+              f" vs plan.compute: max|err| {float((streamed - offline).abs().max()):.3e} dB "
+              f"(rtol 1e-4, atol 1e-4)")
+
+    # ---- 7c. a multirate FeatureSet at 44.1 kHz --------------------------------
+    # tests/test_multirate.py's signal, whose bounds hold it (17 harmonics of
+    # 220 Hz), at a phase of its own a row
+    sr44, n44 = 44100.0, 441000
+    t44 = np.arange(n44) / sr44
+    phase = srng.uniform(0.0, 2 * np.pi, size=(bs, 1))
+    arrays = sum(np.sin(2 * np.pi * 220.0 * k * t44 + k + phase) / k
+                 for k in range(1, 18)).astype(np.float32)
+    mel80 = tg.MelParams(80, 0.0, 4000.0, tg.MelNorm.SLANEY)
+    mf = tg.MfccPlan(tg.StftParams(2048, 512), sr44, mel_params=mel80.with_multirate(),
+                     mfcc_params=tg.MfccParams(13), dtype="float32")
+    ch = tg.ChromaPlan(tg.StftParams(4096, 1024), sr44,
+                       tg.ChromaParams.music_standard().with_multirate(), dtype="float32")
+    mf_full = tg.MfccPlan(tg.StftParams(2048, 512), sr44, mel_params=mel80,
+                          mfcc_params=tg.MfccParams(13), dtype="float32")
+    ch_full = tg.ChromaPlan(tg.StftParams(4096, 1024), sr44, dtype="float32")
+    fs = tg.FeatureSet([mf, ch])
+    pipe = tg.FeaturePipeline(fs, batch_size=bs, target_seconds=10.0)
+    pipe.warm_preload()
+    zero()
+    set_batches = list(pipe.run_arrays(list(arrays), sample_rates=int(sr44)))
+    torch.cuda.synchronize()
+    launches = [c.launches for c in counters]
+    xb = torch.from_numpy(arrays).to(dev)
+    with torch.no_grad():
+        got_mf, got_ch = set_batches[0].features
+        alone_mf, alone_ch = mf.compute_batch(xb), ch.compute_batch(xb)
+        full_mf, full_ch = mf_full.compute_batch(xb), ch_full.compute_batch(xb)
+    bit_mf, bit_ch = torch.equal(got_mf, alone_mf), torch.equal(got_ch, alone_ch)
+    e_mf = float((got_mf - full_mf).abs().max()) / float(full_mf.abs().max())
+    e_ch = float((got_ch - full_ch).abs().max()) / float(full_ch.abs().max())
+    depths = (mf._mel_plan._multirate_inner[0], ch._decimation)
+    with torch.no_grad():
+        t_set = time_ms(lambda: fs._step_impl(xb))
+        t_mf, t_mf_full = time_ms(lambda: mf.compute_batch(xb)), time_ms(lambda: mf_full.compute_batch(xb))
+        t_ch, t_ch_full = time_ms(lambda: ch.compute_batch(xb)), time_ms(lambda: ch_full.compute_batch(xb))
+        t_dec = time_ms(lambda: mf._mel_plan._mr_pre(xb))  # the MFCC member's front end alone
+    check("multirate FeatureSet", len(set_batches) == 1 and launches == [2, 0] and bit_mf
+          and bit_ch and e_mf <= 1e-3 and e_ch <= 2e-4 and depths == (2, 2),
+          f"{card} | MFCC-13 mel-80 0-4 kHz 2048/512 + chroma 4096/1024, {bs} x 10 s at 44.1 "
+          f"kHz through run_arrays: depths {depths}, launches f32/tier {launches[0]}/"
+          f"{launches[1]} (want 2/0); members bit-equal to standalone: MFCC {bit_mf}, chroma "
+          f"{bit_ch}; vs full rate max|err|/max MFCC {e_mf:.3e} (limit 1e-3), chroma {e_ch:.3e} "
+          f"(limit 2e-4) | median/p90 of 100: the set's step {t_set[0]:.4f}/{t_set[1]:.4f} ms; "
+          f"MFCC multirate {t_mf[0]:.4f} vs full rate {t_mf_full[0]:.4f} ms (of which the "
+          f"decimator, pad and 2^d gain {t_dec[0]:.4f} ms); chroma multirate {t_ch[0]:.4f} vs "
+          f"full rate {t_ch_full[0]:.4f} ms")
+
+    # ---- 7d. both kernels at the decimated inner geometries -----------------
+    # The main path's shapes, on phase 3's broadband signal (noise and tones)
+    # decimated by the plans' own front ends: the harmonic clips above leave
+    # mel bands at the dB floor, where the tier's rounding is not bounded by
+    # the frame's scale.
+    xn = torch.from_numpy(signal(np.random.default_rng(SEED + 6), bs, n44, sr44)).to(dev)
+    hann = lambda m: tg.make_window(tg.WindowType.hanning, m)
+    mp = mf.mfcc_params
+    basis = _dct_lifter_matrix(80, mp.n_mfcc, mp.lifter)
+    basis = basis if mp.include_c0 or mp.n_mfcc == 1 else basis[:, 1:]
+    geoms = [
+        # name, decimated signal, n_fft, hop, sr, window, mapping, amp, pre, dct, kind, tol
+        ("MFCC-13 mel-80 512/128 at 11025 Hz", mf._mel_plan._mr_pre(xn), 512, 128,
+         sr44 / 4, hann(2048)[::4], mel_filterbank(sr44 / 4, 512, mel80), "decibels", "none",
+         basis, "mfcc"),
+        ("chroma 1024/256 at 11025 Hz", ch._pre(xn), 1024, 256, sr44 / 4, hann(4096)[::4],
+         chroma_filterbank(sr44 / 4, 1024, ch.params), "power", "magnitude", None, "power"),
+    ]
+    for name, y, n_fft, hop, sr_d, win, mapping, amp, pre, dct, kind in geoms:
+        f32 = dict(dtype=torch.float32, device=dev)
+        win_t, map_t = torch.tensor(win, **f32), torch.tensor(mapping, **f32)
+        dct_t = None if dct is None else torch.tensor(dct, **f32)
+        kw = dict(amp=amp, floor_db=-80.0, centre=False, pre_amp=pre, device=str(dev),
+                  dct_key=None if dct is None else ff.KernelConst(dct))
+        run32 = ff.fused_factored_features(n_fft, hop, tuple(win.tolist()),
+                                           ff.KernelConst(mapping), **kw)
+        run16 = ff.fused_factored_features(n_fft, hop, tuple(win.tolist()),
+                                           ff.KernelConst(mapping), precision="bf16", **kw)
+        consts = ff.tier_constants(n_fft, win, mapping, dct, "bf16", True, dev)
+        with torch.no_grad():
+            plain = lambda: ff.fused_features_reference(y, win_t, map_t, amp, -80.0, pre, dct_t,
+                                                        False, n_fft, hop)
+            plain16 = lambda: ff.fused_tier_features_reference(y, consts, amp, -80.0, pre,
+                                                               False, hop)
+            out32, ref32, out16, ref16 = run32(y), plain(), run16(y), plain16()
+
+            def chain():
+                s = torch.stft(y, n_fft, hop, window=win_t, center=False, return_complex=True)
+                p = s.abs() if pre == "magnitude" else s.abs() ** 2
+                f = map_t @ p
+                if amp == "decibels":
+                    f = 10.0 * torch.log10(torch.clamp_min(f, 1e-8))
+                return f if dct_t is None else torch.matmul(dct_t.T, f)
+
+            times = {k: time_ms(fn) for k, fn in (("f32 kernel", lambda: run32(y)),
+                                                  ("f32 plain", plain), ("chain", chain),
+                                                  ("tier kernel", lambda: run16(y)),
+                                                  ("tier plain", plain16))}
+        if kind == "mfcc":
+            err32 = float((out32 - ref32).abs().max())
+            lim32 = 1e-4 * float(ref32.abs().max())
+            ok32, what32 = err32 <= lim32, f"max|err| {err32:.3e} (limit {lim32:.3e}, 1e-4*max|ref|)"
+        else:
+            excess = (out32 - ref32).abs() - 1e-4 * ref32.abs() - 1e-7 * float(ref32.abs().max())
+            ok32 = float(excess.max()) <= 0.0
+            what32 = (f"max|err| {float((out32 - ref32).abs().max()):.3e} (rtol 1e-4 + atol "
+                      "1e-7*max|ref|)")
+        reading, limit, ok16, what = twin_err(out16, ref16, kind)
+        xerr, xlim, xok = tier_err(out16, ref32, kind, "bf16")
+        frames = y.shape[0] * out32.shape[-1]
+        io = (4 * y.numel(), 4 * out32.numel())
+        b32 = f32_bound(y.numel(), out32.numel(), frames, n_fft, mapping, dct, pre == "magnitude")
+        b16 = tier_bound("bf16", True, n_fft, mapping, 0 if dct is None else dct.shape[1],
+                         frames, *io, pre == "magnitude")
+        check(f"decimated {name}", ok32 and ok16 and xok,
+              f"{card} | input {tuple(y.shape)} -> {tuple(out32.shape)}, decimated Hann, "
+              f"centre=False | f32 kernel vs plain {what32}; tier kernel (bf16) vs plain {what} "
+              f"{reading:.3e} (limit {limit:g}), vs f32 exact {xerr:.3e} (limit {xlim:.3e}) | "
+              "median/p90 of 100: " + ", ".join(f"{k} {v[0]:.4f}/{v[1]:.4f} ms"
+                                                 for k, v in times.items())
+              + f" | bound f32 {b32[0] * 1e3:.2f} us ({'bytes' if b32[1] >= b32[2] else 'operations'}),"
+              f" tier {b16[0] * 1e3:.2f} us ({'bytes' if b16[1] >= b16[2] else 'operations'})")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs one GPU")
@@ -210,7 +526,18 @@ def main() -> None:
         fail("TF32 matmuls are enabled; the plain references need true f32")
 
     # ---- 2. build -------------------------------------------------------
+    # the host library (g++) builds beside the two nvcc builds
+    from spectrograms_tpu_torch.runtime import native
+    native_build = {}
+
+    def build_native():
+        t = time.perf_counter()
+        native_build["path"] = native.build_library()
+        native_build["seconds"] = time.perf_counter() - t
+
+    native_thread = threading.Thread(target=build_native)
     t0 = time.perf_counter()
+    native_thread.start()
     _build.build_all(["fused_features", "fused_tier_features"])
     _build.load_library("fused_features", ff._SIGNATURES)
     _build.load_library("fused_tier_features", ff._TIER_SIGNATURES)
@@ -222,6 +549,11 @@ def main() -> None:
         )
         print(f"[2 build] {name}.cu sm_90a in {seconds:.2f} s "
               f"(both, in parallel, loaded in {time.perf_counter() - t0:.2f} s) | {ptxas}")
+    native_thread.join()
+    if "path" not in native_build or not native.native_available():
+        fail("the native host library native/sgtpu.cpp did not build")
+    print(f"[2 build] native/sgtpu.cpp (g++) in {native_build['seconds']:.2f} s -> "
+          f"{native_build['path'].name}")
 
     # ---- 3. kernel against its plain version, on the card ---------------
     rng = np.random.default_rng(SEED)
@@ -780,6 +1112,8 @@ def main() -> None:
           f"f32 {clib_ms:.4f}/{clib_p90:.4f} ms, bf16 {clib16_ms:.4f}/{clib16_p90:.4f} ms, bf16 "
           f"at x2 {clib162_ms:.4f}/{clib162_p90:.4f} ms | tier 1-pass vs the f32 chain: "
           f"{'faster' if c16_ms < clib_ms else 'SLOWER'}")
+
+    serving_phase(tg, ff, dev, card, tier_bound)
 
     print(json.dumps({"kernels": [{
         "name": "fused_features",

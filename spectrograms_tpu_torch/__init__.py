@@ -9,6 +9,12 @@ as two CUDA kernels for Hopper (``ops/fused_factored.py``): the f32
 ``csrc/fused_tier_features.cu`` for ``precision=DEFAULT`` and ``pallas:x2``. Names match
 ``spectrograms_tpu``. Entry points compute on CUDA unless given
 ``device="cpu"``; the package imports neither JAX nor ``spectrograms_tpu``.
+
+Serving: ``FeaturePipeline`` reads WAV files (or decoded arrays) through
+the native loader (``runtime/``, a ctypes binding to ``native/sgtpu.cpp``),
+ships them as float32, int16 or μ-law and returns per-batch features with
+frame masks; ``FeatureSet`` runs several plans over one batch, sharing the
+multirate plans' decimation (``ops/decimate.py``).
 """
 
 from __future__ import annotations
@@ -63,6 +69,8 @@ from .chroma import (
 )
 from .ops.filterbanks import chroma_filterbank
 from .convert import plan_constants_from_numpy
+from .featureset import FeatureSet
+from .serving import FeatureBatch, FeatureSetBatch, FeaturePipeline
 
 __all__ = [
     "SpectrogramError",
@@ -117,4 +125,8 @@ __all__ = [
     "compute_chromagram",
     "chroma_filterbank",
     "plan_constants_from_numpy",
+    "FeatureSet",
+    "FeaturePipeline",
+    "FeatureBatch",
+    "FeatureSetBatch",
 ]

@@ -9,8 +9,13 @@ spectrogram, then per-frame None/L1/L2/Max normalization.
 JAX package picks the kernel on a TPU) one launch computes signal →
 |X| → chroma filterbank (``pre_amp="magnitude"``), at the plan's tier:
 ``precision=HIGH`` runs the f32 kernel, ``DEFAULT`` and ``pallas:x2`` the
-bf16 tensor-core kernel. Gradients flow through the plain path. The
-multirate (decimated) chroma path is not ported yet.
+bf16 tensor-core kernel. Gradients flow through the plain path.
+
+``ChromaParams(multirate=True)``: the bank is zero outside [f_min, f_max],
+so the plan computes on an anti-aliased 2^d-decimated copy at n_fft/2^d and
+hop/2^d (the same bin and frame grids), with the full-rate window sampled
+every 2^d-th point, the centre padding applied at the full rate, and the
+chroma scaled by 2^d; the kernel runs at that geometry.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .dtypes import (
     Precision,
@@ -31,9 +37,10 @@ from .dtypes import (
 from .errors import DimensionMismatchError, InvalidInputError
 from .params import ChromaNorm, ChromaParams, SpectrogramParams, StftParams, r2c_output_size
 from .pipeline import AmpScale, FreqScale, SpectrogramPlan, kernel_kwargs
-from .windows import make_window
+from .windows import WindowType, make_window
+from .ops.decimate import band_limited_decimation_depth, decimate_pow2_framed
 from .ops.filterbanks import chroma_filterbank
-from .ops.framing import frame_signal
+from .ops.framing import frame_count, frame_signal
 from .ops.fused_factored import KernelConst, fused_factored_features, supports_factored_fusion
 from .ops.gradients import kernel_forward_twin_grad
 
@@ -140,24 +147,42 @@ class ChromaPlan:
         precision=None,
         device=None,
     ):
-        if chroma_params.multirate:
-            raise InvalidInputError("multirate chroma plans are not yet ported")
         self.params = chroma_params
         self._dtype = parse_dtype(dtype)
         self._stft = stft_params
+        self._sample_rate_hz = float(sample_rate_hz)
         dev = resolve_device(device)
+        d = (band_limited_decimation_depth(sample_rate_hz, stft_params.n_fft,
+                                           stft_params.hop_size, chroma_params.f_max)
+             if chroma_params.multirate else 0)
+        self._decimation = d
+        window64 = make_window(stft_params.window, stft_params.n_fft, np.float64)
+        if d:
+            # Each decimated frame is the continuous windowed frame sampled
+            # coarser (w[2^d·m]·x(t₀+2^d·m·T)); centre padding is applied at
+            # the full rate, so the decimator's edge transient sits under
+            # the window's tails.
+            window64 = np.ascontiguousarray(window64[:: 2**d])
+            self._stft_eff = StftParams(stft_params.n_fft // 2**d, stft_params.hop_size // 2**d,
+                                        WindowType.custom(window64), centre=False)
+        else:
+            self._stft_eff = stft_params
+        sr_eff = sample_rate_hz / 2**d
+        self._centre_pad = stft_params.n_fft // 2 if (d and stft_params.centre) else 0
+        self._decim_prec = Precision.HIGHEST if precision == Precision.HIGHEST else Precision.HIGH
         is_pallas = method.startswith("pallas")
         self._pallas_factored = (
             (method == "auto" or is_pallas)
             and self._dtype == torch.float32
             and precision != Precision.HIGHEST
-            and supports_factored_fusion(stft_params.n_fft, stft_params.hop_size, self._dtype)
+            and supports_factored_fusion(self._stft_eff.n_fft, self._stft_eff.hop_size,
+                                         self._dtype)
             and (is_pallas or dev.type == "cuda")
         )
-        # The linear-magnitude helper plan backs the plain path; the fused
-        # kernel replaces its forward.
+        # The linear-magnitude helper plan (at the decimated geometry under
+        # multirate) backs the plain path; the fused kernel replaces it.
         self._mag_plan = SpectrogramPlan(
-            SpectrogramParams(stft_params, sample_rate_hz),
+            SpectrogramParams(self._stft_eff, sr_eff),
             FreqScale.LINEAR,
             AmpScale.MAGNITUDE,
             dtype=self._dtype,
@@ -171,45 +196,88 @@ class ChromaPlan:
             self.method = method if is_pallas else "pallas"
         else:
             self.method = self._mag_plan.method
-        self._install_constants(
-            make_window(stft_params.window, stft_params.n_fft, np.float64),
-            chroma_filterbank(sample_rate_hz, stft_params.n_fft, chroma_params),
-        )
+        self._install_constants(window64, chroma_filterbank(sr_eff, self._stft_eff.n_fft,
+                                                            chroma_params))
 
     def _install_constants(self, window64, fb64):
         """(Re)build the device constants from the f64 window (n_fft,) and
-        chroma filterbank (12, n_bins)."""
+        chroma filterbank (12, n_bins), at the decimated geometry under
+        multirate."""
         self._mag_plan._install_constants(window64, None)
         self._fb_t = torch.tensor(fb64.T, dtype=self._dtype, device=self.device)
         if not self._pallas_factored:
             self._forward = self._plain_forward
             return
+        st = self._stft_eff
         self._kernel_run = fused_factored_features(
-            self._stft.n_fft,
-            self._stft.hop_size,
+            st.n_fft,
+            st.hop_size,
             tuple(np.asarray(window64, dtype=np.float64).tolist()),
             KernelConst(fb64),
             amp="power",
             pre_amp="magnitude",
-            centre=self._stft.centre,
+            centre=st.centre,
             device=str(self.device),
             **kernel_kwargs(self.method, self.precision),
         )
         self._forward = kernel_forward_twin_grad(
-            lambda x: self._normalize(self._kernel_run(x)), self._plain_forward)
+            lambda x: self._kernel_post(self._pre(x), self._n_frames(x.shape[-1])),
+            self._plain_forward)
+
+    def _pre(self, x):
+        """Full-rate centre pad and anti-aliased 2^d decimation (none at d=0)."""
+        if not self._decimation:
+            return x
+        if self._centre_pad:
+            x = F.pad(x, (self._centre_pad, self._centre_pad))
+        return decimate_pow2_framed(x, self._decimation, self._decim_prec)
+
+    def _n_frames(self, n: int) -> int:
+        """The full-rate frame count (the decimated grid can gain a frame)."""
+        return frame_count(n, self._stft.n_fft, self._stft.hop_size, self._stft.centre)
 
     def _normalize(self, chroma):
-        """(..., 12, n_frames) → normalized over the 12 classes."""
+        """(..., 12, n_frames) → scaled by 2^d, normalized over the 12 classes."""
+        if self._decimation:
+            chroma = chroma * float(2**self._decimation)
         norm = self.params.norm
         return apply_chroma_normalization(chroma.transpose(-1, -2), norm).transpose(-1, -2)
 
+    def _kernel_post(self, y, nf: int):
+        """The kernel on a (pre-decimated) signal, trimmed and normalized."""
+        return self._normalize(self._kernel_run(y)[..., :nf])
+
+    def _plain_post(self, y, nf: int):
+        """The plain path on a (pre-decimated) signal: (..., 12, nf)."""
+        if y.is_cuda and y.dtype == torch.float32:
+            check_true_f32()
+        st = self._stft_eff
+        frames = frame_signal(y, st.n_fft, st.hop_size, st.centre)
+        mag_t = self._mag_plan._frames_to_bins(frames)[..., :nf, :]   # (..., nf, n_bins)
+        return self._normalize((mag_t @ self._fb_t).transpose(-1, -2))
+
     def _plain_forward(self, x):
         """The plain path: (..., n) → (..., 12, n_frames)."""
-        if x.is_cuda and x.dtype == torch.float32:
-            check_true_f32()
-        frames = frame_signal(x, self._stft.n_fft, self._stft.hop_size, self._stft.centre)
-        mag_t = self._mag_plan._frames_to_bins(frames)        # (..., n_frames, n_bins)
-        return self._normalize((mag_t @ self._fb_t).transpose(-1, -2))
+        return self._plain_post(self._pre(x), self._n_frames(x.shape[-1]))
+
+    # ---- FeatureSet hooks (shared decimation cascade) ----------------------
+    def _fs_cascade_spec(self):
+        """``(composite, precision, pad, depths)`` or None (see ``SpectrogramPlan``)."""
+        if not self._decimation:
+            return None
+        return (True, self._decim_prec, self._centre_pad, (self._decimation,))
+
+    def _fs_forward_batch(self, xb, cascade=None):
+        """Batched forward for a ``FeatureSet``, on its shared cascade."""
+        if cascade is None or not self._decimation:
+            return self._forward(xb)
+        d, n = self._decimation, xb.shape[-1]
+        nf = self._n_frames(n)
+        y = cascade.level_slice(d, self._centre_pad, -(-(n + 2 * self._centre_pad) // (1 << d)))
+        if not self._pallas_factored:
+            return self._plain_post(y, nf)
+        return kernel_forward_twin_grad(lambda yb: self._kernel_post(yb, nf),
+                                        lambda yb: self._plain_post(yb, nf))(y)
 
     def compute(self, samples) -> Chromagram:
         x = torch.as_tensor(samples, dtype=self._dtype, device=self.device)

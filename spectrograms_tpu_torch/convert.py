@@ -7,6 +7,11 @@ arrays (``plan._window``, ``plan._mapping_t.T``, ``ChromaPlan._fb_t.T``,
 ``MfccPlan._basis``) and installing them here shows
 that both packages compute the same function from the same constants,
 independently of whether the port's own builders produce the same arrays.
+
+A multirate plan computes at its inner (decimated) geometry, so it takes
+the inner plan's constants: a JAX plan's ``_multirate_inner[1]._window`` and
+``._mapping_t.T`` (an ``MfccPlan``'s through its ``_mel_plan``, a
+``ChromaPlan``'s ``_mag_plan._window`` and ``_fb_t.T``, already decimated).
 """
 
 from __future__ import annotations
@@ -37,17 +42,21 @@ def plan_constants_from_numpy(plan, window, mapping=None, dct_basis: Optional[np
     Every derived constant (DFT matrices, the kernel's constants at the
     plan's tier) is rebuilt from them. ``mapping`` is None for a linear
     plan, and the (12, n_bins) chroma filterbank for a :class:`ChromaPlan`.
+    A multirate plan takes them at its inner geometry (n_fft/2^d).
     Returns ``plan``.
     """
     if isinstance(plan, ChromaPlan):
         if dct_basis is not None:
             raise InvalidInputError("only an MfccPlan takes dct_basis")
-        n_fft = plan._stft.n_fft
+        n_fft = plan._stft_eff.n_fft
         fb = _f64("mapping", mapping, (plan._fb_t.shape[1], n_fft // 2 + 1))
         plan._install_constants(_f64("window", window, (n_fft,)), fb)
         return plan
-    spec_plan = plan._mel_plan if isinstance(plan, MfccPlan) else plan
-    if not isinstance(spec_plan, SpectrogramPlan):
+    if isinstance(plan, MfccPlan):
+        spec_plan = plan._kernel_plan
+    elif isinstance(plan, SpectrogramPlan):
+        spec_plan = plan if plan._multirate_inner is None else plan._multirate_inner[1]
+    else:
         raise InvalidInputError(f"not a port plan: {type(plan).__name__}")
     n_fft = spec_plan._n_fft
     window64 = _f64("window", window, (n_fft,))
@@ -67,5 +76,5 @@ def plan_constants_from_numpy(plan, window, mapping=None, dct_basis: Optional[np
     else:
         if dct_basis is not None:
             raise InvalidInputError("only an MfccPlan takes dct_basis")
-        plan._install_constants(window64, mapping64)
+        spec_plan._install_constants(window64, mapping64)
     return plan

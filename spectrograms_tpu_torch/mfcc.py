@@ -10,6 +10,10 @@ liftered coefficients out, one launch per ``compute_batch``, at the plan's
 tier (``precision=DEFAULT`` and ``pallas:x2`` take the bf16 tensor-core
 kernel). Gradients flow through the plain path. ``mfcc``/``compute_mfcc``
 are the one-shots and ``delta`` the regression deltas.
+
+With a multirate mel front end (``MelParams(multirate=True)``) the kernel is
+built at the inner (decimated) geometry of the mel plan and fed the
+decimated, 2^d-scaled signal; the DCT tail does not depend on the rate.
 """
 
 from __future__ import annotations
@@ -168,45 +172,94 @@ class MfccPlan:
         )
         self.device = self._mel_plan.device
         self.method = self._mel_plan.method
+        kp = self._kernel_plan
         self._install_constants(
-            make_window(stft_params.window, stft_params.n_fft, np.float64),
-            mel_filterbank(sample_rate_hz, stft_params.n_fft, mel_params),
+            make_window(kp.params.stft.window, kp._n_fft, np.float64),
+            mel_filterbank(kp.params.sample_rate_hz, kp._n_fft, mel_params.with_multirate(False)),
             _dct_lifter_matrix(mel_params.n_mels, mfcc_params.n_mfcc, mfcc_params.lifter),
         )
 
+    @property
+    def _kernel_plan(self) -> SpectrogramPlan:
+        """The mel plan whose geometry the kernel runs at: the multirate
+        inner plan, or the mel plan itself."""
+        mr = self._mel_plan._multirate_inner
+        return self._mel_plan if mr is None else mr[1]
+
     def _install_constants(self, window64, mapping64, basis64):
         """(Re)build the device constants from the f64 window, mel matrix
-        (n_mels, n_bins) and DCT-lifter basis (n_mels, n_mfcc)."""
-        self._mel_plan._install_constants(window64, mapping64)
+        (n_mels, n_bins) and DCT-lifter basis (n_mels, n_mfcc). The window
+        and the matrix are at the kernel's geometry: the inner plan's under
+        multirate."""
+        kp = self._kernel_plan
+        kp._install_constants(window64, mapping64)
         self._basis = torch.tensor(basis64, dtype=self._dtype, device=self.device)
-        if not self.method.startswith("pallas"):
+        if not kp.method.startswith("pallas"):
             self._forward = self._plain_forward
             return
         p = self.mfcc_params
         kernel_basis = basis64[:, 1:] if not p.include_c0 and p.n_mfcc > 1 else basis64
         run = fused_factored_features(
-            self._stft.n_fft,
-            self._stft.hop_size,
+            kp._n_fft,
+            kp._hop,
             tuple(np.asarray(window64, dtype=np.float64).tolist()),
             KernelConst(mapping64),
             amp="decibels",
             floor_db=float(self._log_params.floor_db),
-            centre=self._stft.centre,
+            centre=kp._centre,
             dct_key=KernelConst(kernel_basis),
             device=str(self.device),
-            **self._mel_plan._kernel_kwargs,
+            **kp._kernel_kwargs,
         )
         self._kernel_run = run
-        self._forward = kernel_forward_twin_grad(run, self._plain_forward)
+        if kp is self._mel_plan:
+            self._forward = kernel_forward_twin_grad(run, self._plain_forward)
+            return
+        mp = self._mel_plan
+
+        def multirate_run(x):
+            return run(mp._mr_pre(x))[..., : mp._mr_frames(x.shape[-1])]
+
+        self._forward = kernel_forward_twin_grad(multirate_run, self._plain_forward)
+
+    def _mfcc_tail(self, log_mel):
+        """(..., n_mels, n_frames) log-mel → (..., n_out, n_frames)."""
+        p = self.mfcc_params
+        return _mfcc_core(log_mel.transpose(-1, -2), self._basis, p.include_c0,
+                          p.n_mfcc).transpose(-1, -2)
 
     def _plain_forward(self, x):
         """The plain path: (..., n) → (..., n_out, n_frames)."""
+        if self._mel_plan._multirate_inner is not None:
+            return self._mfcc_tail(self._mel_plan._forward_impl(x))
         if x.is_cuda and x.dtype == torch.float32:
             check_true_f32()
         frames = frame_signal(x, self._stft.n_fft, self._stft.hop_size, self._stft.centre)
         log_mel_t = self._mel_plan._frames_to_bins(frames)
         p = self.mfcc_params
         return _mfcc_core(log_mel_t, self._basis, p.include_c0, p.n_mfcc).transpose(-1, -2)
+
+    # ---- FeatureSet hooks (shared decimation cascade) ----------------------
+    def _fs_cascade_spec(self):
+        """The mel front end's decimation signature (``SpectrogramPlan``)."""
+        return self._mel_plan._fs_cascade_spec()
+
+    def _fs_forward_batch(self, xb, cascade=None):
+        """Batched forward for a ``FeatureSet``, on its shared cascade."""
+        mp = self._mel_plan
+        if cascade is None or mp._multirate_inner is None:
+            return self._forward(xb)
+        d, inner = mp._multirate_inner
+        n = xb.shape[-1]
+        nf = mp._mr_frames(n)
+        y = cascade.level_slice(d, mp._mr_pad, -(-(n + 2 * mp._mr_pad) // (1 << d))) * mp._mr_gain
+
+        def plain(yb):
+            return self._mfcc_tail(inner._forward_impl(yb)[..., :nf])
+
+        if not inner.method.startswith("pallas"):
+            return plain(y)
+        return kernel_forward_twin_grad(lambda yb: self._kernel_run(yb)[..., :nf], plain)(y)
 
     def compute(self, samples) -> Mfcc:
         x = torch.as_tensor(samples, dtype=self._dtype, device=self.device)

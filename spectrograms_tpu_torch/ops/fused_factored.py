@@ -54,6 +54,7 @@ __all__ = [
     "tier_constants",
     "supports_factored_fusion",
     "parse_pallas_method",
+    "build_kernels",
     "KernelConst",
 ]
 
@@ -300,6 +301,22 @@ _TIER_SIGNATURES = {
 }
 
 
+# csrc source of each kernel -> the signatures of its C entry points
+_SOURCES = {"fused_features": _SIGNATURES, "fused_tier_features": _TIER_SIGNATURES}
+
+
+def build_kernels(sources) -> None:
+    """Build and load the named kernel sources (``run.source`` of a
+    runner) without launching them: one ``nvcc`` each, all started
+    together; a built source is loaded as it is."""
+    from ._build import build_all, load_library
+
+    sources = sorted(set(sources))
+    build_all(sources)
+    for name in sources:
+        load_library(name, _SOURCES[name])
+
+
 def _geometry(n_fft, hop, mapping_key, amp, pre_amp, dct_key):
     """Validate a kernel request; (mapping (n_out, n_bins), dct or None) f64."""
     if not supports_factored_fusion(n_fft, hop, torch.float32):
@@ -340,8 +357,9 @@ def _kernel_device(device) -> torch.device:
     return dev
 
 
-def _runner(dev, plain, launch):
-    """The runner of a factory: plain version on a CPU tensor, else the kernel."""
+def _runner(dev, plain, launch, source):
+    """The runner of a factory: plain version on a CPU tensor, else the
+    kernel of ``csrc/<source>.cu`` (``run.source``)."""
 
     def run(x):
         if x.dtype != torch.float32:
@@ -358,6 +376,7 @@ def _runner(dev, plain, launch):
             raise InvalidInputError(f"batch {x.shape[0]} exceeds the kernel's grid limit 65535")
         return launch(x.contiguous())
 
+    run.source = source
     return run
 
 
@@ -486,7 +505,7 @@ def fused_factored_features(
             x, window_t, mapping_t, amp, floor_db, pre_amp, dct_t, centre, n_fft, hop
         )
 
-    run = _runner(dev, plain, launch)
+    run = _runner(dev, plain, launch, "fused_features")
     if dev.type == "cuda":
         run.launch, run.tile_f = launch, tile
     return run
@@ -608,7 +627,7 @@ def fused_tier_features(
     def plain(x):
         return fused_tier_features_reference(x, consts, amp, floor_db, pre_amp, centre, hop)
 
-    run = _runner(dev, plain, launch)
+    run = _runner(dev, plain, launch, "fused_tier_features")
     if dev.type == "cuda":
         run.launch, run.tile_f = launch, tile
     return run

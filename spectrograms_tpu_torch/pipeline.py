@@ -21,16 +21,24 @@ plans on a CUDA device (where the JAX package requires a TPU), unless
 The JAX package's ``vmap`` becomes an explicit batch axis: ``compute_batch``
 runs the same function on a (B, n) tensor. Entry points compute on CUDA
 unless given ``device="cpu"``.
+
+``MelParams``/``LogHzParams(multirate=True)`` run the band-limited multirate
+route: an inner plan at n_fft/2^d, hop/2^d and sr/2^d (the same bin and
+frame grids) computes on an anti-aliased 2^d-decimated copy of the signal
+(``ops.decimate``), scaled by 2^d, and on CUDA launches the same kernels at
+that geometry. ``compute_frame`` is the streaming single-frame path.
 """
 
 from __future__ import annotations
 
 import enum
+import warnings
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .dtypes import (
     Precision,
@@ -46,10 +54,12 @@ from .params import (
     LogParams,
     MelParams,
     SpectrogramParams,
+    StftParams,
     r2c_output_size,
 )
-from .windows import make_window
+from .windows import WindowType, make_window
 from .ops import filterbanks as fb
+from .ops.decimate import band_limited_decimation_depth, decimate_pow2_framed
 from .ops.dft import MATMUL_MAX_N_FFT, rdft_matrices
 from .ops.framing import frame_count, frame_signal, framed_matmul
 from .ops.fused_factored import (
@@ -240,8 +250,6 @@ class SpectrogramPlan:
         sr = params.sample_rate_hz
         if freq_scale == FreqScale.CQT:
             raise InvalidInputError("CQT plans are not yet ported")
-        if getattr(scale_params, "multirate", False):
-            raise InvalidInputError("multirate plans are not yet ported")
         self.method = _resolve_method(
             method, n_fft, hop, self._dtype, freq_scale, self.precision, self.device
         )
@@ -290,7 +298,69 @@ class SpectrogramPlan:
                     "method='auto' or 'matmul' for other sizes"
                 )
         self._kernel_kwargs = kernel_kwargs(self.method, self.precision)
-        self._install_constants(make_window(stft_p.window, n_fft, np.float64), mapping)
+        window64 = make_window(stft_p.window, n_fft, np.float64)
+        self._multirate_inner = None
+        self._install_constants(window64, mapping)
+        if freq_scale in (FreqScale.MEL, FreqScale.LOG_HZ) and scale_params.multirate:
+            self._init_multirate(method, window64)
+
+    def _init_multirate(self, method: str, window64: np.ndarray) -> None:
+        """The band-limited multirate route (``pipeline.py:605-690`` of the
+        JAX package). The mapping is zero above f_max, so an inner plan at
+        sr/2^d over n_fft/2^d (the same bin grid) with the full-rate window
+        sampled every 2^d-th point and ``centre=False`` computes on the
+        decimated copy of the signal, centre-padded at the full rate; the
+        2^d gain restores the full-rate DFT scale (X_full = 2^d · X_dec)."""
+        d = band_limited_decimation_depth(self.params.sample_rate_hz, self._n_fft, self._hop,
+                                          self.scale_params.f_max)
+        if method.startswith("pallas"):
+            # An explicit kernel request stays buildable at the inner
+            # geometry (n_fft >= 256): cap the depth instead of raising.
+            while d and self._n_fft // 2**d < 256:
+                d -= 1
+        if not d:
+            return
+        D = 2**d
+        inner = SpectrogramPlan(
+            SpectrogramParams(
+                StftParams(self._n_fft // D, self._hop // D,
+                           WindowType.custom(np.ascontiguousarray(window64[::D])), centre=False),
+                self.params.sample_rate_hz / D,
+            ),
+            self.freq_scale,
+            self.amp_scale,
+            scale_params=self.scale_params.with_multirate(False),
+            log_params=self.log_params,
+            dtype=self._dtype,
+            method=method,
+            precision=self.precision,
+            device=self.device,
+        )
+        self._multirate_inner = (d, inner)
+        self._mr_pad = self._n_fft // 2 if self._centre else 0
+        self._mr_gain = float(D)
+        # The decimator's flavour key (FeatureSet); its products are f32.
+        self._mr_decim_prec = (
+            Precision.HIGHEST if self.precision == Precision.HIGHEST else Precision.HIGH
+        )
+        self._forward = self._mr_forward
+
+    def _mr_pre(self, x):
+        """Full-rate centre pad, anti-aliased 2^d decimation, 2^d gain."""
+        d, _ = self._multirate_inner
+        if self._mr_pad:
+            x = F.pad(x, (self._mr_pad, self._mr_pad))
+        return decimate_pow2_framed(x, d, self._mr_decim_prec) * self._mr_gain
+
+    def _mr_frames(self, n: int) -> int:
+        """The full-rate frame count: the decimated grid can gain a trailing
+        frame when n is not a multiple of 2^d."""
+        return frame_count(n, self._n_fft, self._hop, self._centre)
+
+    def _mr_forward(self, x):
+        """Multirate forward: the inner plan's (kernel) forward on the
+        decimated signal, trimmed to the full-rate frames."""
+        return self._multirate_inner[1]._forward(self._mr_pre(x))[..., : self._mr_frames(x.shape[-1])]
 
     def _install_constants(self, window64: np.ndarray, mapping64: Optional[np.ndarray]):
         """(Re)build every device constant from the f64 window and mapping."""
@@ -319,6 +389,8 @@ class SpectrogramPlan:
             self._forward = kernel_forward_twin_grad(self._kernel_run, self._forward_impl)
         else:
             self._forward = self._forward_impl
+        if self._multirate_inner is not None:
+            self._forward = self._mr_forward
 
     # ---- core math ------------------------------------------------------
     def _bins(self, re, im):
@@ -334,8 +406,18 @@ class SpectrogramPlan:
             return self._bins(spec.real, spec.imag)
         return self._bins(*(frames @ self._dft_cs).chunk(2, dim=-1))
 
+    def _forward_frames(self, frames):
+        """(..., n_frames, n_fft) raw frames → (..., n_frames, n_out): the
+        full-rate frames step of ``compute_frame`` and streaming."""
+        if frames.is_cuda and frames.dtype == torch.float32:
+            check_true_f32()
+        return self._frames_to_bins(frames)
+
     def _forward_impl(self, x):
         """The plain path: (..., n) → (..., n_out, n_frames)."""
+        if self._multirate_inner is not None:
+            inner = self._multirate_inner[1]
+            return inner._forward_impl(self._mr_pre(x))[..., : self._mr_frames(x.shape[-1])]
         if x.is_cuda and x.dtype == torch.float32:
             check_true_f32()
         if self.method == "matmul":
@@ -398,8 +480,48 @@ class SpectrogramPlan:
             raise InvalidInputError("signal must be non-empty")
         return self._forward(xb)
 
-    def compute_frame(self, samples, frame_idx: int):
-        raise InvalidInputError("compute_frame is not yet ported")
+    def compute_frame(self, samples, frame_idx: int) -> torch.Tensor:
+        """Frame ``frame_idx`` of the signal's spectrogram, (n_bins,): the
+        streaming single-frame path (``compute_frame``, spectrogram.rs:335).
+
+        A multirate plan runs the full-rate path here and warns once: its
+        frames match ``compute()``'s decimated route to ~1e-5 relative, not
+        bit for bit.
+        """
+        x = self._validate_signal(samples)
+        if self._multirate_inner is not None and not getattr(self, "_warned_multirate_frame", False):
+            warnings.warn(
+                "compute_frame on a multirate mel/log-Hz plan runs the "
+                "full-rate path; values match compute()'s decimated path to "
+                "~1e-5 relative, not bitwise",
+                stacklevel=2,
+            )
+            self._warned_multirate_frame = True
+        nf = frame_count(x.shape[0], self._n_fft, self._hop, self._centre)
+        if frame_idx < 0 or frame_idx >= nf:
+            raise InvalidInputError(f"frame_idx {frame_idx} out of range (n_frames={nf})")
+        pad = self._n_fft // 2 if self._centre else 0
+        start = frame_idx * self._hop
+        frame = F.pad(x, (pad, pad + self._n_fft))[start : start + self._n_fft]
+        return self._forward_frames(frame[None, :])[0]
+
+    # ---- FeatureSet hooks (shared decimation cascade) ----------------------
+    def _fs_cascade_spec(self):
+        """``(composite, precision, pad, depths)`` of the decimation front
+        end, or None: members of a ``FeatureSet`` with equal (composite,
+        precision) share one ``DecimationCascade``."""
+        if self._multirate_inner is None:
+            return None
+        return (True, self._mr_decim_prec, self._mr_pad, (self._multirate_inner[0],))
+
+    def _fs_forward_batch(self, xb, cascade=None):
+        """Batched forward for a ``FeatureSet``, on its shared cascade."""
+        if cascade is None or self._multirate_inner is None:
+            return self._forward(xb)
+        d, inner = self._multirate_inner
+        n = xb.shape[-1]
+        y = cascade.level_slice(d, self._mr_pad, -(-(n + 2 * self._mr_pad) // (1 << d)))
+        return inner._forward(y * self._mr_gain)[..., : self._mr_frames(n)]
 
 
 class StftPlan:

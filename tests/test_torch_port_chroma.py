@@ -116,9 +116,17 @@ def test_chromagram_from_spectrogram_matches_jax():
 
 
 def test_multirate_is_not_yet_ported():
-    with pytest.raises(tg.InvalidInputError, match="not yet ported"):
-        chroma_plan(tg, "auto", params=tg.ChromaParams.music_standard().with_multirate(),
-                    sr=44100.0)
+    """Multirate chroma was the part of ``ChromaPlan`` still missing; it is
+    ported now and builds at JAX's depth with JAX's output (the full
+    parity: ``tests/test_torch_port_multirate.py``)."""
+    x = np.random.default_rng(18).standard_normal(44100).astype(np.float32)
+    kw = dict(params=sg.ChromaParams.music_standard().with_multirate(), sr=44100.0)
+    j = chroma_plan(sg, "auto", **kw)
+    t = chroma_plan(tg, "auto", **{**kw, "params": tg.ChromaParams.music_standard().with_multirate()})
+    assert t._decimation == j._decimation == 2
+    ref = np.asarray(j.compute(x).data)
+    np.testing.assert_allclose(t.compute(x).to_numpy(), ref, rtol=0,
+                               atol=1e-5 * float(np.abs(ref).max()))
 
 
 @pytest.mark.parametrize("method", ["matmul", "pallas"])
