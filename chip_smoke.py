@@ -51,7 +51,17 @@ beside this run's:
    kernels against their plain versions at the decimated inner geometries
    512/128 and 1024/256; ``StreamingSpectrogram`` against ``compute``;
    audio-s/s end to end, of the loader alone and of one step's device time;
-8. the ``kernels`` JSON line, the card line, and the result line
+8. the spectrogram-family surface (``surface_phase``): the packed 1-pass
+   tier form (``pallas:dif`` at ``DEFAULT``) timed at the flagship beside
+   its plain version and its bound; config 2 (``SpectrogramPlanner().mel_db_plan`` and
+   ``MelDbPlan`` on the (32, 160000) batch, mel-128 dB) at ``HIGH`` (the f32
+   kernel once) and ``DEFAULT`` (the tier kernel once) against
+   ``method="matmul"``; the ``compute_mel_db_spectrogram`` one-shot twice
+   (a plan-cache hit, one launch a call); config 1 (``LinearPowerPlan`` at
+   float64) against a numpy f64 STFT; ``StftPlan`` on the batch against
+   ``rfft`` of f64 frames, ``istft`` back and ``compute_frame``; Griffin-Lim
+   (32 iterations, both routes) against the port's CPU run of the same seed;
+9. the ``kernels`` JSON line, the card line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero, printing no result, when CUDA is unavailable. Imports
@@ -499,6 +509,216 @@ def serving_phase(tg, ff, dev, card, tier_bound) -> None:
                                                  for k, v in times.items())
               + f" | bound f32 {b32[0] * 1e3:.2f} us ({'bytes' if b32[1] >= b32[2] else 'operations'}),"
               f" tier {b16[0] * 1e3:.2f} us ({'bytes' if b16[1] >= b16[2] else 'operations'})")
+
+
+# Phase 8's limits. The mel-dB kernel route against method="matmul" is held
+# at phase 4's limit for the mel-dB sibling (2e-2 dB), the DEFAULT tier at
+# TIER_LIMITS. The f64 LinearPowerPlan against a numpy f64 STFT at 1e-10 of
+# the peak (tests/test_stft.py's 1e-10). The f32 STFT against rfft of frames
+# built in f64 at 1e-4 of the peak, its iSTFT at 1e-4 of the signal's peak
+# (tests/test_torch_port_stft.py's f32 bar). Griffin-Lim on the card against
+# the port's CPU run of the same seed: at f64 (the fft route) 1e-9 of the
+# peak; at f32 (the matmul route) both sum in f32 in their own order and the
+# momentum-0.99 iteration amplifies that (tests/test_torch_port_reconstruct.py
+# holds the port against the JAX package at 2e-2 of the peak after 32
+# iterations), so 1e-2 of the peak, and the spectral convergence within 1e-4.
+SURF_DB = 2e-2
+SURF_F64 = 1e-10
+SURF_STFT = 1e-4
+GL_F64, GL_F32, GL_SC = 1e-9, 1e-2, 1e-4
+
+
+def surface_phase(tg, ff, dev, card, xb, tier_bound) -> None:
+    """Phase 8: the spectrogram-family surface (see the module docstring).
+    Each check prints its reading before a failure ends the run."""
+    counters = (ff.fused_factored_features, ff.fused_tier_features)
+
+    def check(label, ok, reading):
+        print(f"[8 {label}] {reading} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"surface phase: {label}")
+
+    def counted(fn):
+        """fn() with both kernels' counts set to 0 just before it and read
+        just after: (result, (f32 launches, tier launches))."""
+        for c in counters:
+            c.launches = 0
+        with torch.no_grad():
+            out = fn()
+        torch.cuda.synchronize()
+        return out, tuple(c.launches for c in counters)
+
+    t_phase = time.perf_counter()
+    params = tg.SpectrogramParams(tg.StftParams(1024, 256), SR)
+    mel = tg.MelParams(128, 0.0, 8000.0, tg.MelNorm.SLANEY)
+    db = tg.LogParams(-80.0)
+    audio_s = xb.shape[0] * xb.shape[1] / SR
+
+    # ---- 8a. config 2: MelDbPlan on the (32, 160000) batch -------------------
+    planned = tg.SpectrogramPlanner().mel_db_plan(params, mel, db, dtype="float32")
+    typed = tg.MelDbPlan(params, mel, db, dtype="float32")
+    with torch.no_grad():
+        ref = tg.MelDbPlan(params, mel, db, dtype="float32", method="matmul").compute_batch(xb)
+    y_planned, l_planned = counted(lambda: planned.compute_batch(xb))
+    y, l_high = counted(lambda: typed.compute_batch(xb))
+    err = float((y - ref).abs().max())
+    # Beside each kernel: its plain version, a PyTorch chain computing the
+    # same function (timed only) and its bound, as in phase 6.
+    from spectrograms_tpu_torch.ops.dft import rdft_matrices
+    from spectrograms_tpu_torch.ops.filterbanks import mel_filterbank
+    mel64 = mel_filterbank(SR, 1024, mel)
+    hann64 = tg.make_window(tg.WindowType.hanning, 1024)
+    mel_t = torch.tensor(mel64, dtype=torch.float32, device=dev)
+    win_t = torch.tensor(hann64, dtype=torch.float32, device=dev)
+    tconsts = ff.tier_constants(1024, hann64, mel64, None, "bf16", True, dev)
+    cs16 = torch.cat(rdft_matrices(1024, hann64, torch.float32, dev), dim=1).to(torch.bfloat16)
+    mel16 = mel_t.T.contiguous().to(torch.bfloat16)
+    eps = 10.0 ** (-80.0 / 10.0)
+
+    def chain():
+        st = torch.stft(xb, 1024, 256, window=win_t, center=True, pad_mode="constant",
+                        return_complex=True)
+        return 10.0 * torch.log10(torch.clamp_min(mel_t @ (st.abs() ** 2), eps))
+
+    def chain_bf16():
+        fr = F.pad(xb, (512, 512)).unfold(-1, 1024, 256).to(torch.bfloat16)
+        re, im = (fr @ cs16).float().chunk(2, dim=-1)
+        mel_p = ((re * re + im * im).to(torch.bfloat16) @ mel16).float()
+        return (10.0 * torch.log10(torch.clamp_min(mel_p, eps))).transpose(-1, -2)
+
+    frames = xb.shape[0] * y.shape[-1]
+    f32_b = f32_bound(xb.numel(), y.numel(), frames, 1024, mel64, None, False)
+    tier_b = tier_bound("bf16", True, 1024, mel64, 0, frames, 4 * xb.numel(), 4 * y.numel(), False)
+    with torch.no_grad():
+        high_ms, high_p90 = time_ms(lambda: typed.compute_batch(xb))
+        high_k = time_ms(lambda: typed._kernel_run(xb))[0]
+        high_plain = time_ms(lambda: ff.fused_features_reference(
+            xb, win_t, mel_t, "decibels", -80.0, "none", None, True, 1024, 256))[0]
+        high_chain = time_ms(chain)[0]
+    check("config 2 HIGH",
+          type(planned) is tg.MelDbPlan and planned.method == typed.method == "pallas"
+          and l_planned == l_high == (1, 0) and torch.equal(y, y_planned)
+          and tuple(y.shape) == (32, 128, 626) and bool(torch.isfinite(y).all()) and err <= SURF_DB,
+          f"{card} | SpectrogramPlanner().mel_db_plan and MelDbPlan (1024/256, mel-128 Slaney "
+          f"0-8 kHz, -80 dB) compute_batch (32, 160000) -> {tuple(y.shape)}, method "
+          f"{typed.method!r}, launches f32 {l_high[0]} tier {l_high[1]} (planner's plan "
+          f"{l_planned[0]}/{l_planned[1]}, equal: {torch.equal(y, y_planned)}); vs "
+          f"method='matmul' max|err| {err:.3e} dB (limit {SURF_DB:g}); median/p90 of 100 "
+          f"{high_ms:.4f}/{high_p90:.4f} ms, {audio_s / (high_ms / 1e3):.0f} audio-s/s; the "
+          f"kernel {high_k:.4f} ms, plain {high_plain:.4f} ms, torch.stft chain "
+          f"{high_chain:.4f} ms, bound {f32_b[0] * 1e3:.2f} us "
+          f"({'bytes' if f32_b[1] >= f32_b[2] else 'operations'})")
+    del ref
+    dplan = tg.MelDbPlan(params, mel, db, dtype="float32", precision=tg.Precision.DEFAULT)
+    with torch.no_grad():
+        exact = tg.MelDbPlan(params, mel, db, dtype="float32", method="matmul",
+                             precision=tg.Precision.HIGHEST).compute_batch(xb)
+    yd, l_dflt = counted(lambda: dplan.compute_batch(xb))
+    terr, tlim, tok = tier_err(yd, exact, "db", "bf16")
+    with torch.no_grad():
+        dflt_ms, dflt_p90 = time_ms(lambda: dplan.compute_batch(xb))
+        dflt_k = time_ms(lambda: dplan._kernel_run(xb))[0]
+        dflt_plain = time_ms(lambda: ff.fused_tier_features_reference(
+            xb, tconsts, "decibels", -80.0, "none", True, 256))[0]
+        dflt_chain = time_ms(chain_bf16)[0]
+    check("config 2 DEFAULT", l_dflt == (0, 1) and tok and tuple(yd.shape) == (32, 128, 626),
+          f"{card} | MelDbPlan(precision=DEFAULT) compute_batch, launches f32 {l_dflt[0]} tier "
+          f"{l_dflt[1]}; vs HIGHEST matmul max|err| {terr:.3e} in power (limit {tlim:.3e}); "
+          f"median/p90 of 100 {dflt_ms:.4f}/{dflt_p90:.4f} ms, "
+          f"{audio_s / (dflt_ms / 1e3):.0f} audio-s/s; the kernel {dflt_k:.4f} ms, plain "
+          f"{dflt_plain:.4f} ms, bf16 chain {dflt_chain:.4f} ms, bound {tier_b[0] * 1e3:.2f} us "
+          f"({'bytes' if tier_b[1] >= tier_b[2] else 'operations'})")
+    del yd, exact
+
+    # ---- 8b. the one-shot and its plan cache -----------------------------------
+    tg.clear_fft_plan_cache()
+    row = xb[0]
+    calls = [counted(lambda: tg.compute_mel_db_spectrogram(row, params, mel, db)) for _ in range(2)]
+    info = tg.fft_plan_cache_info()["functions.cached_plan"]
+    oerr = float((calls[1][0].data - y[0]).abs().max())
+    check("one-shot", (info["misses"], info["hits"]) == (1, 1)
+          and [c[1] for c in calls] == [(1, 0), (1, 0)]
+          and torch.equal(calls[0][0].data, calls[1][0].data) and oerr <= SURF_DB,
+          f"compute_mel_db_spectrogram on one 10 s row, twice: plan cache misses "
+          f"{info['misses']} hits {info['hits']}; launches f32/tier a call "
+          f"{[c[1] for c in calls]}; vs row 0 of the batch max|err| {oerr:.3e} dB "
+          f"(limit {SURF_DB:g})")
+    del y, calls
+
+    # ---- 8c. config 1: f64 LinearPowerPlan against numpy ------------------------
+    n1 = 16000
+    x1 = np.sin(2 * np.pi * 440.0 * np.arange(n1) / n1)
+    lp = tg.LinearPowerPlan(tg.SpectrogramParams(tg.StftParams(256, 128), float(n1)),
+                            dtype="float64")
+    got = lp.compute(x1).to_numpy()
+    w = tg.make_window(tg.WindowType.hanning, 256)
+    xp = np.pad(x1, (128, 128))
+    frames = np.stack([xp[i * 128 : i * 128 + 256] for i in range((len(xp) - 256) // 128 + 1)])
+    want = (np.abs(np.fft.rfft(frames * w, axis=-1)) ** 2).T
+    e64 = float(np.abs(got - want).max())
+    x1_dev = torch.from_numpy(x1).to(dev)
+    lp_ms = time_ms(lambda: lp.compute_raw(x1_dev))[0]
+    check("config 1", lp.method == "fft" and got.dtype == np.float64 and got.shape == want.shape
+          and e64 <= SURF_F64 * want.max() and int(np.argmax(got.mean(axis=1))) == 7,
+          f"{card} | LinearPowerPlan(256/128, float64) on 1 s of a 440 Hz sine -> "
+          f"{got.shape}, method {lp.method!r}; vs numpy f64 STFT max|err| {e64:.3e} "
+          f"(limit {SURF_F64:g} x max {want.max():.1f}); peak bin "
+          f"{int(np.argmax(got.mean(axis=1)))}; median {lp_ms:.4f} ms a signal")
+
+    # ---- 8d. STFT round trip -------------------------------------------------------
+    sp = tg.StftPlan(params, dtype="float32")
+    with torch.no_grad():
+        res = sp.compute(xb)
+        fr = F.pad(xb.double(), (512, 512)).unfold(-1, 1024, 256)
+        w64 = torch.tensor(tg.make_window(tg.WindowType.hanning, 1024), dtype=torch.float64,
+                           device=dev)
+        sref = torch.fft.rfft(fr * w64, dim=-1).transpose(-1, -2)
+        serr = float((res.data.to(torch.complex128) - sref).abs().max() / sref.abs().max())
+        del fr, sref
+        back = tg.istft(res.data[0], 1024, 256)
+        ierr = float((back - xb[0]).abs().max() / xb[0].abs().max())
+        col = sp.compute_frame(xb[0], 300)
+        ferr = float((col - res.data[0, :, 300]).abs().max() / res.data[0, :, 300].abs().max())
+        stft_ms = time_ms(lambda: sp.compute(xb))[0]
+        win32 = w64.float()
+        lib_ms = time_ms(lambda: torch.stft(xb, 1024, 256, window=win32, center=True,
+                                            pad_mode="constant", return_complex=True))[0]
+    check("stft round trip", res.shape == (32, 513, 626) and res.data.dtype == torch.complex64
+          and serr <= SURF_STFT and back.shape == xb[0].shape and ierr <= SURF_STFT
+          and ferr <= SURF_STFT,
+          f"{card} | StftPlan(1024/256, float32).compute (32, 160000) -> {res.shape} "
+          f"{res.data.dtype}; vs rfft of f64 frames max|err|/max {serr:.3e}; istft of channel 0 "
+          f"max|err|/max {ierr:.3e}; compute_frame(300) vs its column {ferr:.3e} (limits "
+          f"{SURF_STFT:g}); median {stft_ms:.4f} ms ({audio_s / (stft_ms / 1e3):.0f} audio-s/s), "
+          f"torch.stft {lib_ms:.4f} ms")
+    del res, back
+
+    # ---- 8e. Griffin-Lim on the card against the port's CPU run -----------------------
+    xs = np.sin(2 * np.pi * 440.0 * np.arange(16000) / 16000.0)
+    for dt, tol in ((np.float32, GL_F32), (np.float64, GL_F64)):
+        mag = tg.stft(xs.astype(dt), 1024, 256).abs()
+
+        def conv(yy):
+            m = tg.stft(yy, 1024, 256, device=dev).abs()[:, : mag.shape[1]]
+            return float(torch.linalg.norm(m - mag) / torch.linalg.norm(mag))
+
+        with torch.no_grad():
+            y0 = tg.griffin_lim(mag, 1024, 256, n_iter=0, length=16000)
+            y32 = tg.griffin_lim(mag, 1024, 256, n_iter=32, length=16000)
+            ycpu = tg.griffin_lim(mag.cpu(), 1024, 256, n_iter=32, length=16000, device="cpu")
+            gerr = float((y32.cpu() - ycpu).abs().max() / ycpu.abs().max())
+            sc0, sc32, sc_cpu = conv(y0), conv(y32), conv(ycpu.to(dev))
+            gl_ms = time_ms(lambda: tg.griffin_lim(mag, 1024, 256, n_iter=32, length=16000),
+                            reps=20, warmup=2)[0]
+        route = "matmul" if dt == np.float32 else "fft"
+        check(f"griffin-lim {np.dtype(dt).name}",
+              y32.device.type == "cuda" and sc32 < sc0 and gerr <= tol
+              and (dt == np.float64 or abs(sc32 - sc_cpu) <= GL_SC),
+              f"{card} | 32 iterations at 1024/256, 1 s of a 440 Hz sine, {route} route: "
+              f"spectral convergence {sc0:.4f} at iteration 0 -> {sc32:.6f} (CPU run "
+              f"{sc_cpu:.6f}); vs the CPU run of the same seed max|err|/max {gerr:.3e} "
+              f"(limit {tol:g}); {gl_ms / 32:.4f} ms an iteration (median of 20 calls)")
+    print(f"[8 phase] {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> None:
@@ -1114,6 +1334,38 @@ def main() -> None:
           f"{'faster' if c16_ms < clib_ms else 'SLOWER'}")
 
     serving_phase(tg, ff, dev, card, tier_bound)
+
+    # ---- 8. the spectrogram-family surface ------------------------------
+    # First the packed product of the 1-pass tier (K1e: method="pallas:dif"
+    # at DEFAULT) at the flagship, with its bound and its chain (the bf16
+    # chain of the 1-pass tier computes the same function).
+    packed_plan = tg.MfccPlan(tg.StftParams(1024, 256), SR, **kw, method="pallas:dif",
+                              precision=tg.Precision.DEFAULT)
+    ff.fused_factored_features.launches = 0
+    ff.fused_tier_features.launches = 0
+    with torch.no_grad():
+        yp = packed_plan.compute_batch(xb)
+    torch.cuda.synchronize()
+    p_launches = (ff.fused_factored_features.launches, ff.fused_tier_features.launches)
+    with torch.no_grad():
+        exact_mfcc = tg.MfccPlan(tg.StftParams(1024, 256), SR, **kw, **highest).compute_batch(xb)
+        perr, plim, pok = tier_err(yp, exact_mfcc, "mfcc", "bf16")
+        packed_ms, packed_p90 = time_ms(lambda: packed_plan._kernel_run(xb))
+        packed_consts = ff.tier_constants(1024, hann(1024), mel128, dct40, "bf16", False, dev)
+        packed_plain = time_ms(lambda: ff.fused_tier_features_reference(
+            xb, packed_consts, "decibels", -80.0, "none", True, 256))[0]
+    pb, pb_bytes, pb_ops = tier_bound("bf16", False, *flag_args)
+    print(f"[8 K1e packed] {card} | MfccPlan(method='pallas:dif', precision=DEFAULT) "
+          f"kernel kwargs {packed_plan._kernel_plan._kernel_kwargs}, launches f32 {p_launches[0]} "
+          f"tier {p_launches[1]}; vs HIGHEST matmul max|err| {perr:.3e} (limit {plim:.3e}); "
+          f"median/p90 of 100 {packed_ms:.4f}/{packed_p90:.4f} ms, bound {pb * 1e3:.2f} us "
+          f"({'bytes' if pb_bytes >= pb_ops else 'operations'}), plain {packed_plain:.4f} ms, "
+          f"bf16 chain {tlib_ms:.4f} ms "
+          f"{'ok' if pok and p_launches == (0, 1) else 'FAIL'}")
+    if not pok or p_launches != (0, 1):
+        fail("the packed 1-pass form did not run the tier kernel alone, or disagrees")
+    del yp, exact_mfcc
+    surface_phase(tg, ff, dev, card, xb, tier_bound)
 
     print(json.dumps({"kernels": [{
         "name": "fused_features",

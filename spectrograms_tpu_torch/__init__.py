@@ -10,6 +10,12 @@ as two CUDA kernels for Hopper (``ops/fused_factored.py``): the f32
 ``spectrograms_tpu``. Entry points compute on CUDA unless given
 ``device="cpu"``; the package imports neither JAX nor ``spectrograms_tpu``.
 
+The spectrogram family: ``stft``/``istft`` and the one-shot FFTs
+(``ops/stft.py``), ``StftPlan``, ``SpectrogramPlanner`` and the 15 typed
+plans (``plans.py``), the ``compute_*`` one-shots and their plan cache
+(``functions.py``, ``cache.py``), and Griffin-Lim reconstruction
+(``reconstruct.py``).
+
 Serving: ``FeaturePipeline`` reads WAV files (or decoded arrays) through
 the native loader (``runtime/``, a ctypes binding to ``native/sgtpu.cpp``),
 ships them as float32, int16 or μ-law and returns per-batch features with
@@ -27,7 +33,14 @@ from .errors import (
     InternalError,
     FFTBackendError,
 )
-from .dtypes import Precision, parse_dtype
+from .dtypes import (
+    Precision,
+    complex_dtype,
+    ensure_x64,
+    get_default_dtype,
+    parse_dtype,
+    set_default_dtype,
+)
 from .windows import (
     WindowType,
     make_window,
@@ -58,7 +71,43 @@ from .params import (
     MfccParams,
     r2c_output_size,
 )
-from .pipeline import FreqScale, AmpScale, Spectrogram, SpectrogramPlan, StftPlan
+from .pipeline import (
+    FreqScale,
+    AmpScale,
+    Spectrogram,
+    SpectrogramPlan,
+    SpectrogramPlanner,
+    StftPlan,
+    StftResult,
+)
+from .plans import (
+    LinearPowerPlan,
+    LinearMagnitudePlan,
+    LinearDbPlan,
+    MelPowerPlan,
+    MelMagnitudePlan,
+    MelDbPlan,
+    ErbPowerPlan,
+    ErbMagnitudePlan,
+    ErbDbPlan,
+    LogHzPowerPlan,
+    LogHzMagnitudePlan,
+    LogHzDbPlan,
+    CqtPowerPlan,
+    CqtMagnitudePlan,
+    CqtDbPlan,
+)
+from .ops.stft import fft, rfft, irfft, power_spectrum, magnitude_spectrum, stft, istft
+from .ops.filterbanks import (
+    hz_to_mel,
+    mel_to_hz,
+    hz_to_erb,
+    erb_to_hz,
+    mel_filterbank,
+    chroma_filterbank,
+)
+from .functions import *  # noqa: F401,F403 — the compute_* one-shots
+from .functions import __all__ as _functions_all
 from .mfcc import Mfcc, MfccPlan, mfcc, compute_mfcc, mfcc_from_log_mel, delta
 from .chroma import (
     Chromagram,
@@ -67,10 +116,14 @@ from .chroma import (
     chromagram_from_spectrogram,
     compute_chromagram,
 )
-from .ops.filterbanks import chroma_filterbank
+from .reconstruct import griffin_lim, mel_to_linear, invert_mel_db, mel_filterbank_pinv
 from .convert import plan_constants_from_numpy
 from .featureset import FeatureSet
 from .serving import FeatureBatch, FeatureSetBatch, FeaturePipeline
+from . import runtime
+from .cache import fft_plan_cache_info, clear_fft_plan_cache, cache_stats
+
+__version__ = "0.5.1"
 
 __all__ = [
     "SpectrogramError",
@@ -81,6 +134,10 @@ __all__ = [
     "FFTBackendError",
     "Precision",
     "parse_dtype",
+    "set_default_dtype",
+    "get_default_dtype",
+    "complex_dtype",
+    "ensure_x64",
     "WindowType",
     "make_window",
     "parse_window",
@@ -111,7 +168,37 @@ __all__ = [
     "AmpScale",
     "Spectrogram",
     "SpectrogramPlan",
+    "SpectrogramPlanner",
     "StftPlan",
+    "StftResult",
+    "LinearPowerPlan",
+    "LinearMagnitudePlan",
+    "LinearDbPlan",
+    "MelPowerPlan",
+    "MelMagnitudePlan",
+    "MelDbPlan",
+    "ErbPowerPlan",
+    "ErbMagnitudePlan",
+    "ErbDbPlan",
+    "LogHzPowerPlan",
+    "LogHzMagnitudePlan",
+    "LogHzDbPlan",
+    "CqtPowerPlan",
+    "CqtMagnitudePlan",
+    "CqtDbPlan",
+    "__version__",
+    "fft",
+    "rfft",
+    "irfft",
+    "power_spectrum",
+    "magnitude_spectrum",
+    "stft",
+    "istft",
+    "hz_to_mel",
+    "mel_to_hz",
+    "hz_to_erb",
+    "erb_to_hz",
+    "mel_filterbank",
     "Mfcc",
     "MfccPlan",
     "mfcc",
@@ -124,9 +211,17 @@ __all__ = [
     "chromagram_from_spectrogram",
     "compute_chromagram",
     "chroma_filterbank",
+    "griffin_lim",
+    "mel_to_linear",
+    "invert_mel_db",
+    "mel_filterbank_pinv",
     "plan_constants_from_numpy",
     "FeatureSet",
     "FeaturePipeline",
     "FeatureBatch",
     "FeatureSetBatch",
-]
+    "runtime",
+    "fft_plan_cache_info",
+    "clear_fft_plan_cache",
+    "cache_stats",
+] + [name for name in _functions_all if name not in ("fft_plan_cache_info", "clear_fft_plan_cache")]

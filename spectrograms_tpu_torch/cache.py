@@ -1,0 +1,77 @@
+"""Plan-cache introspection (``fft_plan_cache_info``/``clear_fft_plan_cache``,
+python/mod.rs:203-233, and ``cache_stats``, fft_backend.rs:1071).
+
+Counterpart of ``spectrograms_tpu.cache``. The port's plan cache is its
+``functools.lru_cache``'d host builders: the one-shots' plans, filterbanks,
+DFT matrices, the iSTFT's window-energy normalizer, the MFCC DCT and the
+decimation filters. ``fft_plan_cache_info`` reports each one's counters
+and, when a card is present, the CUDA memory PyTorch has allocated under the
+label ``device.cuda_memory_allocated`` (bytes; the JAX package reports its
+live arrays there). ``clear_fft_plan_cache`` empties every host cache.
+"""
+
+from __future__ import annotations
+
+import sys
+from typing import Dict
+
+import torch
+
+__all__ = ["fft_plan_cache_info", "clear_fft_plan_cache", "cache_stats"]
+
+# label → module (under this package) whose cached builders it reports. The
+# package imports every one of them; they are looked up in ``sys.modules``
+# because the package rebinds some module names (``mfcc``) to functions.
+_CACHE_MODULES = {
+    "functions": "functions",
+    "filterbanks": "ops.filterbanks",
+    "dft_matrices": "ops.dft",
+    "ola_norm": "ops.stft",
+    "mfcc_dct": "mfcc",
+    "decimate": "ops.decimate",
+}
+
+
+def _host_caches():
+    """name → lru-cached callable defined in one of ``_CACHE_MODULES``."""
+    out = {}
+    for label, name in _CACHE_MODULES.items():
+        mod = sys.modules[f"{__package__}.{name}"]
+        for attr in vars(mod).values():
+            if (callable(attr) and hasattr(attr, "cache_info") and hasattr(attr, "cache_clear")
+                    and getattr(attr, "__module__", None) == mod.__name__):
+                out[f"{label}.{attr.__name__.lstrip('_')}"] = attr
+    return out
+
+
+def fft_plan_cache_info() -> Dict[str, Dict[str, int]]:
+    """Per-cache ``{hits, misses, currsize, maxsize}``, and the CUDA memory
+    allocated when a card is present."""
+    info: Dict[str, Dict[str, int]] = {}
+    for name, fn in _host_caches().items():
+        ci = fn.cache_info()
+        info[name] = {
+            "hits": ci.hits,
+            "misses": ci.misses,
+            "currsize": ci.currsize,
+            "maxsize": ci.maxsize if ci.maxsize is not None else -1,
+        }
+    if torch.cuda.is_available():
+        info["device.cuda_memory_allocated"] = {
+            "hits": -1,
+            "misses": -1,
+            "currsize": torch.cuda.memory_allocated(),
+            "maxsize": -1,
+        }
+    return info
+
+
+def cache_stats() -> Dict[str, Dict[str, int]]:
+    """Alias for :func:`fft_plan_cache_info`."""
+    return fft_plan_cache_info()
+
+
+def clear_fft_plan_cache() -> None:
+    """Clear every host constant cache, the one-shots' plans included."""
+    for fn in _host_caches().values():
+        fn.cache_clear()

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from .dtypes import (
     Precision,
     check_true_f32,
+    dlpack_export,
     parse_dtype,
     real_dtype_name,
     resolve_device,
@@ -85,6 +86,13 @@ class Chromagram:
     def __array__(self, dtype=None, copy=None):
         arr = self.to_numpy()
         return arr.astype(dtype) if dtype is not None else arr
+
+    def __dlpack__(self, stream=None, max_version=None, dl_device=None, copy=None):
+        """DLPack export, the Array-API arguments checked (``dlpack_export``)."""
+        return dlpack_export(self.data, stream, max_version, dl_device, copy)
+
+    def __dlpack_device__(self):
+        return self.data.__dlpack_device__()
 
 
 def apply_chroma_normalization(chroma_t, norm: ChromaNorm):

@@ -13,6 +13,9 @@ runs in the plan's torch dtype on the plan's device.
   port's plain paths always run in true f32 (``check_true_f32``).
 - ``resolve_device`` maps ``device=None`` to CUDA and raises when CUDA is
   absent: an entry point never quietly runs on the CPU.
+- ``set_default_dtype`` changes what ``dtype=None`` means (float32 unless
+  set); ``complex_dtype`` gives the STFT's complex dtype; ``dlpack_export``
+  backs the result classes' ``__dlpack__``.
 """
 
 from __future__ import annotations
@@ -28,6 +31,11 @@ __all__ = [
     "DEFAULT_DTYPE",
     "Precision",
     "parse_dtype",
+    "set_default_dtype",
+    "get_default_dtype",
+    "complex_dtype",
+    "ensure_x64",
+    "dlpack_export",
     "numpy_dtype",
     "ensure_plan_dtype",
     "real_dtype_name",
@@ -50,6 +58,8 @@ _ALIASES = {
 
 _TO_NUMPY = {torch.float32: np.dtype(np.float32), torch.float64: np.dtype(np.float64)}
 
+_default_dtype = DEFAULT_DTYPE
+
 
 class Precision(enum.Enum):
     """Matmul precision request, the port's ``jax.lax.Precision``."""
@@ -63,10 +73,10 @@ def parse_dtype(dtype=None) -> torch.dtype:
     """Parse a dtype spec ("float32"/"f32"/"float64"/"f64"/"bfloat16"/…).
 
     Accepts strings, torch dtypes, numpy dtypes and python float types.
-    ``None`` gives float32.
+    ``None`` gives the default (float32; see :func:`set_default_dtype`).
     """
     if dtype is None:
-        return DEFAULT_DTYPE
+        return _default_dtype
     if isinstance(dtype, torch.dtype):
         if not dtype.is_floating_point:
             raise InvalidInputError(f"unsupported dtype {dtype!r}: must be floating")
@@ -85,6 +95,34 @@ def parse_dtype(dtype=None) -> torch.dtype:
     if dt.kind != "f" or dt.name not in _ALIASES:
         raise InvalidInputError(f"unsupported dtype {dtype!r}: must be float32/float64")
     return _ALIASES[dt.name]
+
+
+def set_default_dtype(dtype) -> None:
+    """Set the dtype used when ``dtype=None`` (framework default: float32).
+
+    ``set_default_dtype("float64")`` restores the reference crate's default
+    precision, as in the JAX package.
+    """
+    global _default_dtype
+    dt = parse_dtype(dtype)
+    ensure_x64(dt)
+    _default_dtype = dt
+
+
+def get_default_dtype() -> torch.dtype:
+    """The dtype used when ``dtype=None``."""
+    return _default_dtype
+
+
+def complex_dtype(real_dtype) -> torch.dtype:
+    """Complex counterpart of a real dtype (bf16/f32 → complex64, f64 → complex128)."""
+    return torch.complex128 if parse_dtype(real_dtype) == torch.float64 else torch.complex64
+
+
+def ensure_x64(dtype) -> None:
+    """Kept for the JAX package's surface, where it raises when float64 is
+    asked for without jax's x64 mode. PyTorch computes in float64 natively,
+    so there is nothing to check."""
 
 
 def numpy_dtype(dtype: torch.dtype) -> np.dtype:
@@ -142,6 +180,35 @@ def check_true_f32() -> None:
             "set_float32_matmul_precision); the port's float32 paths require "
             "true f32 matmuls"
         )
+
+
+def dlpack_export(data: torch.Tensor, stream=None, max_version=None, dl_device=None,
+                  copy=None):
+    """Array-API ``__dlpack__`` backing for the result classes.
+
+    Validates the arguments as the JAX package's ``dlpack_export`` does (the
+    same ``BufferError`` texts), then exports through
+    ``torch.Tensor.__dlpack__``. The data is detached first: DLPack carries
+    no autograd graph.
+    """
+    data = data.detach()
+    dev = data.__dlpack_device__()
+    if stream is not None and dev[0] == 1:  # kDLCPU
+        raise BufferError("stream must be None for CPU tensors")
+    if max_version is not None:
+        major = max_version[0]
+        if major < 1:
+            raise BufferError(f"Unsupported DLPack version: {max_version[0]}.{max_version[1]}")
+    if dl_device is not None and tuple(dl_device) != tuple(dev):
+        if dev[0] == 1:
+            raise BufferError(f"Only CPU device (1, 0) is supported, got {tuple(dl_device)}")
+        raise BufferError(f"Unsupported DLPack device {tuple(dl_device)}")
+    if copy:
+        data = data.clone()
+    kwargs = {} if max_version is None else {"max_version": tuple(max_version)}
+    if stream is not None:
+        return data.__dlpack__(stream=stream, **kwargs)
+    return data.__dlpack__(**kwargs)
 
 
 def result_data(obj):

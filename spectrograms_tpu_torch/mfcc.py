@@ -25,7 +25,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .dtypes import check_true_f32, numpy_dtype, parse_dtype, real_dtype_name, result_data
+from .dtypes import (check_true_f32, dlpack_export, numpy_dtype, parse_dtype, real_dtype_name,
+                     result_data)
 from .errors import InvalidInputError
 from .params import LogParams, MelParams, MfccParams, SpectrogramParams, StftParams
 from .pipeline import AmpScale, FreqScale, Spectrogram, SpectrogramPlan
@@ -98,6 +99,13 @@ class Mfcc:
     def __array__(self, dtype=None, copy=None):
         arr = self.to_numpy()
         return arr.astype(dtype) if dtype is not None else arr
+
+    def __dlpack__(self, stream=None, max_version=None, dl_device=None, copy=None):
+        """DLPack export, the Array-API arguments checked (``dlpack_export``)."""
+        return dlpack_export(self.data, stream, max_version, dl_device, copy)
+
+    def __dlpack_device__(self):
+        return self.data.__dlpack_device__()
 
 
 def _mfcc_core(log_mel_t, basis, include_c0: bool, n_mfcc: int):

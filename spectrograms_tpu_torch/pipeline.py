@@ -22,6 +22,10 @@ The JAX package's ``vmap`` becomes an explicit batch axis: ``compute_batch``
 runs the same function on a (B, n) tensor. Entry points compute on CUDA
 unless given ``device="cpu"``.
 
+``StftPlan`` is the complex STFT (``StftResult``) and ``SpectrogramPlanner``
+the plan factory, with the 15 named ``{scale}_{amp}_plan`` builders that
+return the typed plans of ``plans.py``.
+
 ``MelParams``/``LogHzParams(multirate=True)`` run the band-limited multirate
 route: an inner plan at n_fft/2^d, hop/2^d and sr/2^d (the same bin and
 frame grids) computes on an anti-aliased 2^d-decimated copy of the signal
@@ -43,12 +47,15 @@ import torch.nn.functional as F
 from .dtypes import (
     Precision,
     check_true_f32,
+    dlpack_export,
     ensure_plan_dtype,
     parse_dtype,
+    real_dtype_name,
     resolve_device,
 )
-from .errors import InvalidInputError
+from .errors import DimensionMismatchError, InvalidInputError
 from .params import (
+    CqtParams,
     ErbParams,
     LogHzParams,
     LogParams,
@@ -62,6 +69,7 @@ from .ops import filterbanks as fb
 from .ops.decimate import band_limited_decimation_depth, decimate_pow2_framed
 from .ops.dft import MATMUL_MAX_N_FFT, rdft_matrices
 from .ops.framing import frame_count, frame_signal, framed_matmul
+from .ops import stft as stft_ops
 from .ops.fused_factored import (
     KernelConst,
     fused_factored_features,
@@ -75,7 +83,9 @@ __all__ = [
     "AmpScale",
     "Spectrogram",
     "SpectrogramPlan",
+    "SpectrogramPlanner",
     "StftPlan",
+    "StftResult",
 ]
 
 
@@ -139,8 +149,32 @@ class Spectrogram:
     def dtype(self) -> torch.dtype:
         return self.data.dtype
 
+    @property
+    def T(self) -> torch.Tensor:
+        """(n_frames, n_bins) transposed view of the data."""
+        return self.data.T
+
+    def astype(self, dtype) -> torch.Tensor:
+        """The data cast to ``dtype``: a tensor, not a Spectrogram."""
+        if not isinstance(dtype, torch.dtype):
+            try:
+                dtype = parse_dtype(dtype)  # the float spellings, bfloat16 included
+            except InvalidInputError:
+                dtype = torch.from_numpy(np.zeros(0, dtype=np.dtype(dtype))).dtype
+        return self.data.to(dtype)
+
+    def __getitem__(self, idx):
+        """Index straight into the (n_bins, n_frames) data."""
+        return self.data[idx]
+
+    def __iter__(self):
+        """Rows of the data, stopping at ``n_bins``."""
+        return iter(self.data)
+
     def __len__(self) -> int:
-        """Number of time frames (the reference's contract)."""
+        """Number of time frames (the reference's contract). It counts
+        frames, while ``__getitem__``/``__iter__`` index the (bins, frames)
+        data: the same asymmetry the reference ships."""
         return self.n_frames
 
     def duration(self) -> float:
@@ -165,6 +199,20 @@ class Spectrogram:
     def __array__(self, dtype=None, copy=None):
         arr = self.to_numpy()
         return arr.astype(dtype) if dtype is not None else arr
+
+    def __dlpack__(self, stream=None, max_version=None, dl_device=None, copy=None):
+        """DLPack export, the Array-API arguments checked (``dlpack_export``)."""
+        return dlpack_export(self.data, stream, max_version, dl_device, copy)
+
+    def __dlpack_device__(self):
+        return self.data.__dlpack_device__()
+
+    def block_until_ready(self) -> "Spectrogram":
+        """Wait for the work that produces the data: a synchronize of the
+        data's current CUDA stream (nothing to wait for on the CPU)."""
+        if self.data.is_cuda:
+            torch.cuda.current_stream(self.data.device).synchronize()
+        return self
 
     def __repr__(self) -> str:
         return (
@@ -497,13 +545,19 @@ class SpectrogramPlan:
                 stacklevel=2,
             )
             self._warned_multirate_frame = True
-        nf = frame_count(x.shape[0], self._n_fft, self._hop, self._centre)
-        if frame_idx < 0 or frame_idx >= nf:
-            raise InvalidInputError(f"frame_idx {frame_idx} out of range (n_frames={nf})")
-        pad = self._n_fft // 2 if self._centre else 0
-        start = frame_idx * self._hop
-        frame = F.pad(x, (pad, pad + self._n_fft))[start : start + self._n_fft]
+        frame = _extract_frame(x, frame_idx, self._n_fft, self._hop, self._centre)
         return self._forward_frames(frame[None, :])[0]
+
+    def compute_into(self, samples, out: np.ndarray) -> np.ndarray:
+        """Compute into a preallocated numpy array (``compute_into``,
+        spectrogram.rs:414): a copy from the device into ``out``. Prefer
+        :meth:`compute` for on-device pipelines."""
+        x = self._validate_signal(samples)
+        expected = self.output_shape(x.shape[0])
+        if tuple(out.shape) != expected:
+            raise DimensionMismatchError(expected, tuple(out.shape))
+        np.copyto(out, self._forward(x).detach().cpu().numpy())
+        return out
 
     # ---- FeatureSet hooks (shared decimation cascade) ----------------------
     def _fs_cascade_spec(self):
@@ -524,8 +578,214 @@ class SpectrogramPlan:
         return inner._forward(y * self._mr_gain)[..., : self._mr_frames(n)]
 
 
-class StftPlan:
-    """The complex STFT plan of the JAX package; not yet ported."""
+def _extract_frame(x, frame_idx: int, n_fft: int, hop: int, centre: bool):
+    """Frame ``frame_idx`` of a 1-D signal, (n_fft,): the signal padded by
+    ``n_fft//2`` in front under ``centre`` and by a whole frame behind, so a
+    frame that runs past the end reads zeros."""
+    nf = frame_count(x.shape[0], n_fft, hop, centre)
+    if frame_idx < 0 or frame_idx >= nf:
+        raise InvalidInputError(f"frame_idx {frame_idx} out of range (n_frames={nf})")
+    pad = n_fft // 2 if centre else 0
+    start = frame_idx * hop
+    return F.pad(x, (pad, pad + n_fft))[start : start + n_fft]
 
-    def __init__(self, *args, **kwargs):
-        raise InvalidInputError("StftPlan is not yet ported")
+
+@dataclass
+class StftResult:
+    """Complex STFT matrix and its axes (``StftResult``, spectrogram.rs and
+    python/params.rs:319). ``data`` is ([channels,] n_bins, n_frames)
+    complex, on the plan's device."""
+
+    data: torch.Tensor
+    frequencies: np.ndarray
+    sample_rate: float
+    params: StftParams
+
+    @property
+    def n_bins(self) -> int:
+        return self.data.shape[-2]
+
+    @property
+    def n_frames(self) -> int:
+        return self.data.shape[-1]
+
+    @property
+    def n_channels(self) -> int:
+        return self.data.shape[0] if self.data.ndim == 3 else 1
+
+    @property
+    def shape(self):
+        return tuple(self.data.shape)
+
+    @property
+    def dtype(self) -> str:
+        """Real-precision dtype name (reference getter, params.rs:362)."""
+        return real_dtype_name(self.data.dtype)
+
+    @property
+    def frequency_resolution(self) -> float:
+        """Hz per bin = sample_rate / n_fft."""
+        return float(self.sample_rate) / self.params.n_fft
+
+    @property
+    def time_resolution(self) -> float:
+        """Seconds per frame = hop_size / sample_rate."""
+        return self.params.hop_size / float(self.sample_rate)
+
+    def norm(self) -> torch.Tensor:
+        """Magnitude |X| at the matching real precision."""
+        return self.data.abs()
+
+    def to_numpy(self) -> np.ndarray:
+        return self.data.detach().cpu().numpy()
+
+    def __array__(self, dtype=None, copy=None):
+        arr = self.to_numpy()
+        return arr.astype(dtype) if dtype is not None else arr
+
+    def __dlpack__(self, stream=None, max_version=None, dl_device=None, copy=None):
+        """DLPack export, the Array-API arguments checked (``dlpack_export``)."""
+        return dlpack_export(self.data, stream, max_version, dl_device, copy)
+
+    def __dlpack_device__(self):
+        return self.data.__dlpack_device__()
+
+
+class StftPlan:
+    """Reusable complex STFT plan (``StftPlan``, spectrogram.rs:1173-1636).
+
+    ``compute`` takes a 1-D signal or a (channels, n) matrix; the window
+    lives on ``device`` (CUDA unless ``device="cpu"``).
+    """
+
+    def __init__(self, params: SpectrogramParams, dtype=None, device=None):
+        self.params = params
+        self.device = resolve_device(device)
+        self._dtype = parse_dtype(dtype)
+        ensure_plan_dtype(self._dtype)
+        stft_p = params.stft
+        self._n_fft, self._hop, self._centre = stft_p.n_fft, stft_p.hop_size, stft_p.centre
+        self._window = torch.tensor(make_window(stft_p.window, self._n_fft, np.float64),
+                                    dtype=self._dtype, device=self.device)
+
+    @property
+    def dtype(self) -> str:
+        return str(self._dtype).removeprefix("torch.")
+
+    def frame_count(self, n_samples: int) -> int:
+        return frame_count(n_samples, self._n_fft, self._hop, self._centre)
+
+    def compute(self, samples) -> StftResult:
+        spec = stft_ops.stft(samples, self._n_fft, self._hop, self.params.stft.window,
+                             self._centre, dtype=self._dtype, device=self.device)
+        freqs = np.arange(spec.shape[-2], dtype=np.float64) * (
+            self.params.sample_rate_hz / self._n_fft
+        )
+        return StftResult(data=spec, frequencies=freqs,
+                          sample_rate=self.params.sample_rate_hz, params=self.params.stft)
+
+    def compute_frame(self, samples, frame_idx: int) -> torch.Tensor:
+        """Complex spectrum of one frame, (n_bins,): the streaming path."""
+        x = torch.as_tensor(samples, dtype=self._dtype, device=self.device)
+        frame = _extract_frame(x, frame_idx, self._n_fft, self._hop, self._centre)
+        return torch.fft.rfft(frame * self._window, n=self._n_fft)
+
+
+class SpectrogramPlanner:
+    """Plan factory (``SpectrogramPlanner``, spectrogram.rs:640-1153, and
+    the 15 PyO3 plan builders, python/planner.rs:107-668). It carries a
+    default dtype, method and device for the plans it builds."""
+
+    def __init__(self, dtype=None, method: str = "auto", device=None):
+        self._default_dtype = dtype
+        self._default_method = method
+        self._default_device = device
+
+    def _pick(self, dtype, method, device):
+        return (dtype if dtype is not None else self._default_dtype,
+                method if method is not None else self._default_method,
+                device if device is not None else self._default_device)
+
+    # ---- generic builders -------------------------------------------------
+    def linear_plan(self, params, amp=AmpScale.POWER, db=None, dtype=None, method=None,
+                    device=None):
+        return self._plan(params, FreqScale.LINEAR, amp, None, db, dtype, method, device)
+
+    def mel_plan(self, params, mel: MelParams, amp=AmpScale.POWER, db=None, dtype=None,
+                 method=None, device=None):
+        return self._plan(params, FreqScale.MEL, amp, mel, db, dtype, method, device)
+
+    def log_hz_plan(self, params, loghz: LogHzParams, amp=AmpScale.POWER, db=None, dtype=None,
+                    method=None, device=None):
+        return self._plan(params, FreqScale.LOG_HZ, amp, loghz, db, dtype, method, device)
+
+    def erb_plan(self, params, erb: ErbParams, amp=AmpScale.POWER, db=None, dtype=None,
+                 method=None, device=None):
+        return self._plan(params, FreqScale.ERB, amp, erb, db, dtype, method, device)
+
+    def cqt_plan(self, params, cqt: CqtParams, amp=AmpScale.POWER, db=None, dtype=None,
+                 method=None, device=None):
+        return self._plan(params, FreqScale.CQT, amp, cqt, db, dtype, method, device)
+
+    def _plan(self, params, scale, amp, scale_params, db, dtype, method, device):
+        dtype, method, device = self._pick(dtype, method, device)
+        return SpectrogramPlan(params, scale, amp, scale_params=scale_params, log_params=db,
+                               dtype=dtype, method=method, device=device)
+
+    # ---- STFT plan ----------------------------------------------------------
+    def stft_plan(self, params, dtype=None, device=None) -> StftPlan:
+        dtype, _, device = self._pick(dtype, None, device)
+        return StftPlan(params, dtype=dtype, device=device)
+
+    # ---- one-shots (the planner's compute_* methods) -----------------------
+    def compute_stft(self, samples, params: SpectrogramParams, dtype=None,
+                     device=None) -> StftResult:
+        return self.stft_plan(params, dtype, device).compute(samples)
+
+    def compute_power_spectrum(self, samples, n_fft, window=None, dtype=None, device=None):
+        dtype, _, device = self._pick(dtype, None, device)
+        return stft_ops.power_spectrum(samples, n_fft, window, dtype, device)
+
+    def compute_magnitude_spectrum(self, samples, n_fft, window=None, dtype=None, device=None):
+        dtype, _, device = self._pick(dtype, None, device)
+        return stft_ops.magnitude_spectrum(samples, n_fft, window, dtype, device)
+
+
+# The 15 named {scale}_{amp}_plan builders on SpectrogramPlanner (the PyO3
+# matrix, planner.rs:107-668). Each returns the typed plan class of
+# ``plans.py`` (MelDbPlan, LinearPowerPlan, ...), imported at call time: that
+# module imports this one.
+def _install_named_builders():
+    amp_map = {"power": ("Power", AmpScale.POWER), "magnitude": ("Magnitude", AmpScale.MAGNITUDE),
+               "db": ("Db", AmpScale.DECIBELS)}
+    scale_info = {"linear": ("Linear", False), "mel": ("Mel", True), "erb": ("Erb", True),
+                  "loghz": ("LogHz", True), "cqt": ("Cqt", True)}
+    for scale_name, (cls_scale, needs_params) in scale_info.items():
+        for amp_name, (cls_amp, amp) in amp_map.items():
+            cls_name = f"{cls_scale}{cls_amp}Plan"
+
+            def build(self, params, scale_args, db, dtype, method, device,
+                      _cls_name=cls_name, _amp=amp):
+                from . import plans
+
+                dtype, method, device = self._pick(dtype, method, device)
+                return getattr(plans, _cls_name)(
+                    params, *scale_args, db=db if _amp == AmpScale.DECIBELS else None,
+                    dtype=dtype, method=method, device=device,
+                )
+
+            if needs_params:
+                def builder(self, params, scale_params, db=None, dtype=None, method=None,
+                            device=None, _build=build):
+                    return _build(self, params, (scale_params,), db, dtype, method, device)
+            else:
+                def builder(self, params, db=None, dtype=None, method=None, device=None,
+                            _build=build):
+                    return _build(self, params, (), db, dtype, method, device)
+            name = f"{scale_name}_{amp_name}_plan"
+            builder.__name__ = name
+            builder.__doc__ = f"Build a {scale_name} {amp_name} spectrogram plan."
+            setattr(SpectrogramPlanner, name, builder)
+
+
+_install_named_builders()

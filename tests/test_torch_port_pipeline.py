@@ -179,10 +179,11 @@ def test_plan_surface_matches_jax():
 ])
 def test_parts_not_yet_ported_raise(build):
     """Each part of the JAX surface that the port lacks raises "not yet
-    ported". The parts ported since (the multirate plans and
-    ``compute_frame``) build and compute instead: finite values of the
+    ported". The parts ported since (the multirate plans, ``compute_frame``
+    and ``StftPlan``) build and compute instead: finite values of the
     expected shape, here; their parity tests are
-    ``tests/test_torch_port_multirate.py`` and ``test_torch_port_streaming.py``."""
+    ``tests/test_torch_port_multirate.py``, ``test_torch_port_streaming.py``
+    and ``test_torch_port_stft.py``."""
     params = tg.SpectrogramParams(tg.StftParams(1024, 256), SR)
     x = noise(16000, seed=17, dtype=np.float32)
     ported = {
@@ -201,6 +202,7 @@ def test_parts_not_yet_ported_raise(build):
             tg.StftParams(4096, 1024), 44100.0, device="cpu",
             chroma_params=tg.ChromaParams().with_multirate()).compute(x).data,
         "compute_frame": lambda: plan(tg, "mel", "db").compute_frame(x, 0)[:, None],
+        "stft_plan": lambda: tg.StftPlan(params, device="cpu").compute(x).norm(),
     }
     if build in ported:
         out = ported[build]()
@@ -212,8 +214,6 @@ def test_parts_not_yet_ported_raise(build):
         if build == "cqt":
             tg.SpectrogramPlan(params, tg.FreqScale.CQT, tg.AmpScale.POWER,
                                scale_params=tg.CqtParams(12, 4, 55.0), device="cpu")
-        elif build == "stft_plan":
-            tg.StftPlan(params)
         else:
             plan(tg, "mel", "db", method=build)
 
