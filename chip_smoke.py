@@ -61,7 +61,20 @@ beside this run's:
    float64) against a numpy f64 STFT; ``StftPlan`` on the batch against
    ``rfft`` of f64 frames, ``istft`` back and ``compute_frame``; Griffin-Lim
    (32 iterations, both routes) against the port's CPU run of the same seed;
-9. the ``kernels`` JSON line, the card line, and the result line
+9. config 4 of ``benchmarks/suite.py`` (``config4_phase``): 64 × 5 s of
+   noise at 44.1 kHz through ``FeatureSet([CqtPowerPlan (CQT-84 from C1,
+   the octave stack the policy elects), multirate chroma, MDCT round
+   trip])``; the chroma member launches the f32 kernel once a step and
+   equals the standalone plan, the kernel its plain version on the
+   decimated batch; the set's CQT member against the standalone plan at
+   ``tests/test_featureset.py``'s bounds, the f32 CQT (octave stack and
+   dense ``truncate=True``) against the f64 plans, the MDCT round trip and
+   its dense and folded forms, the gammatone bank (``scan`` and
+   ``parallel``) against the port's CPU run; times of the step, the
+   members alone and on their own (``separate``), the dense CQT step, the
+   cascade and the gammatone lowerings, the step's peak memory, and a
+   ``torch.profiler`` breakdown of one step;
+10. the ``kernels`` JSON line, the card line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero, printing no result, when CUDA is unavailable. Imports
@@ -721,6 +734,270 @@ def surface_phase(tg, ff, dev, card, xb, tier_bound) -> None:
     print(f"[8 phase] {time.perf_counter() - t_phase:.1f} s")
 
 
+# Phase 9's limits. The set's CQT member against the standalone plan at
+# tests/test_featureset.py:80-113's bounds, on that test's signal (8 s: the
+# middle third of the frames is then clear of the deep octaves' edges):
+# rtol 5e-5 + atol 5e-5*max in the middle third, 5e-3*max everywhere. The
+# f32 CQT plans against the f64 plans on the card at 1e-5 of the peak: the
+# port's f32 plans read 4.8e-7 (the octave stack) and 8.1e-7 (dense
+# truncate=True) of the peak against its f64 plans on two config-4 rows on
+# the CPU. The MDCT round trip at tests/test_mdct.py's 1e-3 in the
+# interior; its dense and folded forms at 1e-5 of the peak of each other
+# (both f32, one product each, summed in other orders). The gammatone bank
+# on the card against the port's CPU scan at f64 to 1e-9 relative (the
+# JAX scalar-reference test, tests/test_cqt_erb.py:93-124).
+C4_MID, C4_ALL = 5e-5, 5e-3
+C4_F64 = 1e-5
+C4_MDCT, C4_FOLD = 1e-3, 1e-5
+C4_GAMMA = 1e-9
+
+
+def config4_phase(tg, ff, dev, card, batch: int = 64) -> None:
+    """Phase 9: ``benchmarks/suite.py`` config 4 at full size, 64 clips of 5 s
+    (see the module docstring); a smaller ``batch`` rehearses it. Each check
+    prints its reading before a failure ends the run."""
+    from spectrograms_tpu_torch.mdct import (_consts_for, _imdct_folded_impl, _imdct_impl,
+                                             _mdct_folded_impl, _mdct_impl)
+    from spectrograms_tpu_torch.ops.decimate import DecimationCascade
+    from spectrograms_tpu_torch.ops.filterbanks import chroma_filterbank
+
+    counters = (ff.fused_factored_features, ff.fused_tier_features)
+
+    def check(label, ok, reading):
+        print(f"[9 {label}] {reading} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"config 4 phase: {label}")
+
+    def counted(fn):
+        for c in counters:
+            c.launches = 0
+        with torch.no_grad():
+            out = fn()
+        torch.cuda.synchronize()
+        return out, tuple(c.launches for c in counters)
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / float(b.abs().max())
+
+    t_phase = time.perf_counter()
+    sr, n = 44100.0, 220500
+    nf = 216  # frames of 5 s at 4096/1024, centre
+    xb = torch.from_numpy(np.random.default_rng(2).standard_normal((batch, n)).astype(np.float32)
+                          ).to(dev)
+    params = tg.SpectrogramParams(tg.StftParams(4096, 1024), sr)
+    cqt_p = tg.CqtParams(12, 7, 32.703)
+    cq = tg.CqtPowerPlan(params, cqt_p, dtype="float32")
+    cq_dense = tg.CqtPowerPlan(params, cqt_p.with_truncate(True), dtype="float32")
+    ch = tg.ChromaPlan(params.stft, sr, tg.ChromaParams.music_standard().with_multirate(),
+                       dtype="float32")
+    mp = tg.MdctParams.sine_window(512)
+
+    def mdct_rt(b, folded=False):
+        """Config 4's MDCT member: the round trip over the batch axis."""
+        consts = _consts_for(mp, folded, b.dtype, b.device)
+        if folded:
+            d4, wa, wb, wc, wd, w = consts
+            c = _mdct_folded_impl(b, d4, wa, wb, wc, wd, 512, 256)
+            return _imdct_folded_impl(c.transpose(-1, -2), d4, w, 512, 256)[..., : b.shape[-1]]
+        fwd, inv = consts
+        c = _mdct_impl(b, fwd, 512, 256)
+        return _imdct_impl(c.transpose(-1, -2), inv, 512, 256)[..., : b.shape[-1]]
+
+    fs = tg.FeatureSet([cq, ch, mdct_rt])
+    groups = [(d, flen, jp) for d, _, _, flen, jp in cq._cqt_multirate]
+    check("setup", cq.scale_params.multirate and cq.scale_params.multirate_depth == "max"
+          and ch.method == "pallas" and len(fs._flavors) == 1
+          and cq.output_shape(n) == (84, nf),
+          f"CqtPowerPlan(CqtParams(12, 7, 32.703)) at 4096/1024, 44.1 kHz: the policy elected "
+          f"multirate={cq.scale_params.multirate}, depth {cq.scale_params.multirate_depth!r}, "
+          f"groups (d, flen, jp) {groups}; chroma method {ch.method!r} at depth "
+          f"{ch._decimation}; the set's cascades {len(fs._flavors)} (want 1)")
+
+    # ---- 9a. the step, the kernel on its path -------------------------------
+    fs._step_impl(xb)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_mem = torch.cuda.memory_allocated(dev)
+    (got_cq, got_ch, got_rt), launches = counted(lambda: fs._step_impl(xb))
+    peak = torch.cuda.max_memory_allocated(dev) - base_mem
+    with torch.no_grad():
+        alone_ch = ch.compute_batch(xb)
+    bit_ch = torch.equal(got_ch, alone_ch)
+    check("step", launches == (1, 0) and bit_ch and tuple(got_cq.shape) == (batch, 84, nf)
+          and tuple(got_ch.shape) == (batch, 12, nf) and bool(torch.isfinite(got_cq).all())
+          and bool(torch.isfinite(got_rt).all()),
+          f"{card} | FeatureSet([cqt, chroma, mdct_rt])._step_impl on ({batch}, {n}) -> CQT "
+          f"{tuple(got_cq.shape)}, chroma {tuple(got_ch.shape)}, MDCT round trip "
+          f"{tuple(got_rt.shape)}; launches f32/tier a step {launches[0]}/{launches[1]} (want "
+          f"1/0); chroma member bit-equal to ChromaPlan.compute_batch: {bit_ch}; the step's "
+          f"peak CUDA memory above its input {peak / 2**20:.1f} MiB")
+    print(f"[9 launches] config 4's chroma member launches fused_features.cu {launches[0]} time "
+          f"a step (fused_tier_features.cu {launches[1]})")
+
+    y = ch._pre(xb)
+    win_t, fb_t = ch._mag_plan._window, ch._fb_t.T.contiguous()
+    fb64 = chroma_filterbank(sr / 4, 1024, ch.params)
+    with torch.no_grad():
+        out = ch._kernel_run(y)
+        ref = ff.fused_features_reference(y, win_t, fb_t, "power", -80.0, "magnitude", None,
+                                          False, 1024, 256)
+
+        def chain():
+            st = torch.stft(y, 1024, 256, window=win_t, center=False, return_complex=True)
+            return fb_t @ st.abs()
+
+        k_ms, k_p90 = time_ms(lambda: ch._kernel_run(y))
+        p_ms = time_ms(lambda: ff.fused_features_reference(
+            y, win_t, fb_t, "power", -80.0, "magnitude", None, False, 1024, 256))[0]
+        c_ms = time_ms(chain)[0]
+    excess = (out - ref).abs() - 1e-4 * ref.abs() - 1e-7 * float(ref.abs().max())
+    kb = f32_bound(y.numel(), out.numel(), y.shape[0] * out.shape[-1], 1024, fb64, None, True)
+    check("kernel", float(excess.max()) <= 0.0,
+          f"{card} | fused_features.cu on the decimated batch {tuple(y.shape)} (chroma 1024/256 "
+          f"at 11025 Hz, centre=False) -> {tuple(out.shape)} vs its plain version max|err| "
+          f"{float((out - ref).abs().max()):.3e} (rtol 1e-4 + atol 1e-7*max|ref|) | median/p90 "
+          f"of 100: kernel {k_ms:.4f}/{k_p90:.4f} ms, plain {p_ms:.4f} ms, torch.stft chain "
+          f"{c_ms:.4f} ms, bound {kb[0] * 1e3:.2f} us "
+          f"({'bytes' if kb[1] >= kb[2] else 'operations'})")
+    del y, out, ref
+
+    # ---- 9b. CQT ---------------------------------------------------------------------
+    x8 = torch.from_numpy(np.random.default_rng(7).standard_normal((1, int(sr) * 8))
+                          .astype(np.float32)).to(dev)
+    with torch.no_grad():
+        g8 = tg.FeatureSet([cq, ch]).compute_batch(x8)[0]
+        w8 = cq.compute_batch(x8)
+        w5 = cq.compute_batch(xb)
+    nf8 = g8.shape[-1]
+    mid = (Ellipsis, slice(nf8 // 3, 2 * nf8 // 3))
+    peak8 = float(w8.abs().max())
+    mid_excess = float(((g8[mid] - w8[mid]).abs() - C4_MID * w8[mid].abs() - C4_MID * peak8).max())
+    all_err = float((g8 - w8).abs().max()) / peak8
+    mid5 = (Ellipsis, slice(nf // 3, 2 * nf // 3))
+    check("cqt set vs standalone", mid_excess <= 0.0 and all_err <= C4_ALL,
+          f"{card} | the set's CQT member vs CqtPowerPlan.compute_batch on 8 s (the JAX test's "
+          f"signal): middle third rtol {C4_MID:g} + atol {C4_MID:g}*max excess {mid_excess:.3e} "
+          f"(<= 0), everywhere max|err|/max {all_err:.3e} (limit {C4_ALL:g}) | on the config-4 "
+          f"batch (5 s, edge frames nearer the deep octaves): middle third "
+          f"{rel(got_cq[mid5], w5[mid5]):.3e}, everywhere {rel(got_cq, w5):.3e} of the peak")
+    del g8, w8, x8, w5
+    rows = xb[:2]
+    for label, plan, p64 in (("octave stack", cq, cqt_p), ("dense truncate=True", cq_dense,
+                                                            cqt_p.with_truncate(True))):
+        with torch.no_grad():
+            a = plan.compute_batch(rows)
+            b = tg.CqtPowerPlan(params, p64, dtype="float64").compute_batch(rows.double())
+        err = rel(a.double(), b)
+        check(f"cqt f32 vs f64 {label}", err <= C4_F64,
+              f"{card} | CqtPowerPlan f32 vs f64 on two config-4 rows, {label}: max|err|/max "
+              f"{err:.3e} (limit {C4_F64:g})")
+
+    # ---- 9c. MDCT ---------------------------------------------------------------------
+    with torch.no_grad():
+        rt_fold = mdct_rt(xb, folded=True)
+        c_dense = _mdct_impl(xb, _consts_for(mp, False, xb.dtype, dev)[0], 512, 256)
+        d4, wa, wb, wc, wd, _ = _consts_for(mp, True, xb.dtype, dev)
+        c_fold = _mdct_folded_impl(xb, d4, wa, wb, wc, wd, 512, 256)
+    m = got_rt.shape[-1]
+    rt_err = float((got_rt[:, 512:m - 512] - xb[:, 512:m - 512]).abs().max())
+    fold_c, fold_rt = rel(c_fold, c_dense), rel(rt_fold, got_rt)
+    check("mdct", rt_err <= C4_MDCT and fold_c <= C4_FOLD and fold_rt <= C4_FOLD,
+          f"{card} | MdctParams.sine_window(512) round trip of ({batch}, {n}) -> "
+          f"{tuple(got_rt.shape)}: interior max|err| {rt_err:.3e} (limit {C4_MDCT:g}); folded vs "
+          f"dense coefficients {fold_c:.3e}, round trip {fold_rt:.3e} of the peak (limit "
+          f"{C4_FOLD:g})")
+    del rt_fold, c_dense, c_fold
+
+    # ---- 9d. the gammatone bank ---------------------------------------------------------
+    xg = np.random.default_rng(SEED + 9).standard_normal(16000)
+    erb = tg.ErbParams(32, 50.0, 8000.0)
+    want, _ = tg.gammatone_iir_spectrogram(xg, 16000.0, 1024, 256, erb, dtype="float64",
+                                           method="scan", device="cpu")
+    xg_dev = torch.from_numpy(xg).to(dev)
+    g_times, g_errs = {}, {}
+    for method in ("scan", "parallel"):
+        with torch.no_grad():
+            got, _ = tg.gammatone_iir_spectrogram(xg_dev, 16000.0, 1024, 256, erb,
+                                                  dtype="float64", method=method)
+            g_times[method] = time_ms(lambda: tg.gammatone_iir_spectrogram(
+                xg_dev, 16000.0, 1024, 256, erb, dtype="float64", method=method),
+                reps=5, warmup=1)
+        g_errs[method] = float(((got.cpu() - want).abs() / want.abs()).max())
+    check("gammatone", all(e <= C4_GAMMA for e in g_errs.values()),
+          f"{card} | gammatone_iir_spectrogram 1 s at 16 kHz, 32 bands, frame 1024, hop 256 "
+          f"-> {tuple(want.shape)} at f64, vs the port's CPU scan max relative error: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in g_errs.items())
+          + f" (limit {C4_GAMMA:g}) | median/p90 of 5: "
+          + ", ".join(f"{k} {v[0]:.3f}/{v[1]:.3f} ms" for k, v in g_times.items()))
+
+    # ---- 9e. times ----------------------------------------------------------------------
+    def separate():
+        return cq.compute_batch(xb), ch.compute_batch(xb), mdct_rt(xb)
+
+    def dense_step():
+        return cq_dense.compute_batch(xb), ch.compute_batch(xb), mdct_rt(xb)
+
+    depths = sorted({d for spec in fs._specs if spec is not None for d in spec[3]})
+
+    def cascade():
+        cas = DecimationCascade(xb, pad=fs._flavors[(True, tg.Precision.HIGH)],
+                                precision=tg.Precision.HIGH, composite=True)
+        return [cas.level(d) for d in depths]
+
+    with torch.no_grad():
+        times = {label: time_ms(fn, reps=30) for label, fn in (
+            ("step", lambda: fs._step_impl(xb)), ("separate", separate),
+            ("truncate_true", dense_step), ("cqt", lambda: cq.compute_batch(xb)),
+            ("cqt truncate_true", lambda: cq_dense.compute_batch(xb)),
+            ("chroma", lambda: ch.compute_batch(xb)), ("mdct round trip", lambda: mdct_rt(xb)),
+            ("mdct round trip folded", lambda: mdct_rt(xb, folded=True)),
+            ("cascade", cascade))}
+    dense_ops = 2.0 * batch * nf * 4096 * 2 * 84
+    dense_bytes = 4.0 * (batch * n + 4096 * 2 * 84 + batch * nf * 84)
+    d_ops, d_bytes = dense_ops / H100_F32_FLOPS * 1e3, dense_bytes / H100_BYTES_PER_S * 1e3
+    # the MDCT round trip's two dense products, (frames, 512) @ (512, 256) and back
+    mdct_ops = 2 * 2.0 * batch * ((n - 512) // 256 + 1) * 512 * 256
+    m_ops, m_bytes = mdct_ops / H100_F32_FLOPS * 1e3, 4.0 * 2 * batch * n / H100_BYTES_PER_S * 1e3
+    audio_s = batch * n / sr
+    print(f"[9 times] {card} | median/p90 of 30 (L2 flushed, device spin): "
+          + ", ".join(f"{k} {v[0]:.4f}/{v[1]:.4f} ms" for k, v in times.items())
+          + f" | the step {audio_s / (times['step'][0] / 1e3):.0f} audio-s/s ({audio_s:.0f} "
+          f"audio-s a step), truncate_true {audio_s / (times['truncate_true'][0] / 1e3):.0f} "
+          f"audio-s/s | the dense CQT product's bound {max(d_ops, d_bytes):.4f} ms "
+          f"({'operations' if d_ops >= d_bytes else 'bytes'}; {dense_ops / 1e9:.2f} GFLOP at "
+          f"67 TFLOP/s, {dense_bytes / 1e6:.1f} MB at 3.35 TB/s); the MDCT round trip's bound "
+          f"{max(m_ops, m_bytes):.4f} ms ({'operations' if m_ops >= m_bytes else 'bytes'}; "
+          f"{mdct_ops / 1e9:.2f} GFLOP); cascade levels {depths} | "
+          f"host time of one step's enqueue (median of 30, device idle before): "
+          f"{host_us(lambda: fs._step_impl(xb), reps=30) / 1e3:.4f} ms")
+
+    # ---- 9f. where one step's device time goes ----------------------------------------
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad():
+        fs._step_impl(xb)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fs._step_impl(xb)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    # the kernels' own rows (an operator's row repeats its kernels' time)
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    if not events:
+        print("[9 profile] torch.profiler recorded no device time: not measured")
+    else:
+        total = sum(e.self_device_time_total for e in events) / 1e3
+        top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+        print(f"[9 profile] {card} | one step under torch.profiler: wall {wall:.3f} ms, device "
+              f"time {total:.3f} ms in {sum(e.count for e in events)} kernels (idle share of "
+              f"the wall {max(0.0, 1 - total / wall):.2f}) | top by device time: "
+              + "; ".join(f"{e.key[:70]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
+                          for e in top))
+    print(f"[9 phase] {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs one GPU")
@@ -1252,7 +1529,7 @@ def main() -> None:
 
     flag_args = (1024, mel128, 40, batch * n_frames, 4 * xb.numel(), 4 * y.numel(), False)
     tb1, tb1_bytes, tb1_ops = tier_bound("bf16", True, *flag_args)
-    tb2 = tier_bound("bf16x2", False, *flag_args)[0]
+    tb2, tb2_bytes, tb2_ops = tier_bound("bf16x2", False, *flag_args)
     tb1_dense = tier_bound("bf16", True, *flag_args, dense=True)[0]
     tb2_dense = tier_bound("bf16x2", False, *flag_args, dense=True)[0]
     print(f"[6 times bf16] {card} | median/p90 of 100: tier kernel 1-pass {t1_ms:.4f}/{t1_p90:.4f} ms, "
@@ -1263,7 +1540,8 @@ def main() -> None:
           f"{tbatch_ms:.4f}/{tbatch_p90:.4f} ms | host per compute_batch {tbatch_host:.1f} us "
           f"| {audio_s / (t1_ms / 1e3):.0f} audio-s/s 1-pass kernel | bound 1-pass "
           f"{tb1 * 1e3:.2f} us (bytes {tb1_bytes * 1e3:.2f} us, operations {tb1_ops * 1e3:.2f} "
-          f"us), x2 {tb2 * 1e3:.2f} us; the outer DFT counted dense: {tb1_dense * 1e3:.2f} and "
+          f"us), x2 {tb2 * 1e3:.2f} us ({'bytes' if tb2_bytes >= tb2_ops else 'operations'}); "
+          f"the outer DFT counted dense: {tb1_dense * 1e3:.2f} and "
           f"{tb2_dense * 1e3:.2f} us")
 
     # The chroma batch through each kernel, with a yardstick each.
@@ -1315,8 +1593,10 @@ def main() -> None:
         clib162_ms, clib162_p90 = time_ms(chroma_library_bf16x2)
     c_frames = xc.shape[0] * 216
     c_io = (4 * xc.numel(), 4 * xc.shape[0] * 12 * 216)
-    cb16 = tier_bound("bf16", True, 4096, fb44, 0, c_frames, *c_io, True)[0]
-    cb16x2 = tier_bound("bf16x2", False, 4096, fb44, 0, c_frames, *c_io, True)[0]
+    by = lambda b: "bytes" if b[1] >= b[2] else "operations"  # what sets a bound
+    cb16_t = tier_bound("bf16", True, 4096, fb44, 0, c_frames, *c_io, True)
+    cb16x2_t = tier_bound("bf16x2", False, 4096, fb44, 0, c_frames, *c_io, True)
+    cb16, cb16x2 = cb16_t[0], cb16x2_t[0]
     cb16_dense = tier_bound("bf16", True, 4096, fb44, 0, c_frames, *c_io, True, dense=True)[0]
     c_bands = ff.mapping_bands(fb44)
     c_band_total = int((c_bands[:, 1] - c_bands[:, 0]).sum())
@@ -1324,11 +1604,14 @@ def main() -> None:
     c_ops = c_frames * (4096 + 2.5 * 4096 * 12 + 4 * 2049 + 2 * c_band_total) / H100_F32_FLOPS * 1e3
     cb32 = max(c_bytes, c_ops)
     print(f"[6 times chroma] {card} | (64, 220500) 4096/1024 44.1 kHz, median/p90 of 100: "
-          f"f32 kernel {c32_ms:.4f}/{c32_p90:.4f} ms (bound {cb32 * 1e3:.2f} us, plain "
+          f"f32 kernel {c32_ms:.4f}/{c32_p90:.4f} ms (bound {cb32 * 1e3:.2f} us, "
+          f"{by((cb32, c_bytes, c_ops))}; plain "
           f"{cplain_ms:.4f}/{cplain_p90:.4f} ms), tier kernel 1-pass {c16_ms:.4f}/{c16_p90:.4f} "
-          f"ms (bound {cb16 * 1e3:.2f} us; outer DFT counted dense {cb16_dense * 1e3:.2f} us; plain "
+          f"ms (bound {cb16 * 1e3:.2f} us, {by(cb16_t)}; outer DFT counted dense "
+          f"{cb16_dense * 1e3:.2f} us; plain "
           f"{ctplain_ms:.4f}/{ctplain_p90:.4f} ms), x2 {c2_ms:.4f}/{c2_p90:.4f} ms (bound "
-          f"{cb16x2 * 1e3:.2f} us, plain {ctplain2_ms:.4f}/{ctplain2_p90:.4f} ms), library chain "
+          f"{cb16x2 * 1e3:.2f} us, {by(cb16x2_t)}; plain {ctplain2_ms:.4f}/{ctplain2_p90:.4f} "
+          f"ms), library chain "
           f"f32 {clib_ms:.4f}/{clib_p90:.4f} ms, bf16 {clib16_ms:.4f}/{clib16_p90:.4f} ms, bf16 "
           f"at x2 {clib162_ms:.4f}/{clib162_p90:.4f} ms | tier 1-pass vs the f32 chain: "
           f"{'faster' if c16_ms < clib_ms else 'SLOWER'}")
@@ -1366,6 +1649,8 @@ def main() -> None:
         fail("the packed 1-pass form did not run the tier kernel alone, or disagrees")
     del yp, exact_mfcc
     surface_phase(tg, ff, dev, card, xb, tier_bound)
+    del xb
+    config4_phase(tg, ff, dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "fused_features",

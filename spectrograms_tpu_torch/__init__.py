@@ -16,6 +16,11 @@ plans (``plans.py``), the ``compute_*`` one-shots and their plan cache
 (``functions.py``, ``cache.py``), and Griffin-Lim reconstruction
 (``reconstruct.py``).
 
+The constant-Q transform (``cqt``, ``CqtResult`` and the ``Cqt*Plan``s,
+dense, banded or octave-stacked multirate: ``ops/cqt.py``, ``cqt.py``), the
+MDCT (``mdct.py``) and the ERB gammatone bank (``erb.py``); ``audio`` is the
+audio namespace module.
+
 Serving: ``FeaturePipeline`` reads WAV files (or decoded arrays) through
 the native loader (``runtime/``, a ctypes binding to ``native/sgtpu.cpp``),
 ships them as float32, int16 or μ-law and returns per-batch features with
@@ -116,6 +121,9 @@ from .chroma import (
     chromagram_from_spectrogram,
     compute_chromagram,
 )
+from .cqt import CqtResult, cqt
+from .erb import ErbFilterbank, gammatone_center_frequencies, gammatone_iir_spectrogram
+from .mdct import MdctParams, mdct, imdct, compute_mdct, compute_imdct
 from .reconstruct import griffin_lim, mel_to_linear, invert_mel_db, mel_filterbank_pinv
 from .convert import plan_constants_from_numpy
 from .featureset import FeatureSet
@@ -211,6 +219,16 @@ __all__ = [
     "chromagram_from_spectrogram",
     "compute_chromagram",
     "chroma_filterbank",
+    "CqtResult",
+    "cqt",
+    "ErbFilterbank",
+    "gammatone_center_frequencies",
+    "gammatone_iir_spectrogram",
+    "MdctParams",
+    "mdct",
+    "imdct",
+    "compute_mdct",
+    "compute_imdct",
     "griffin_lim",
     "mel_to_linear",
     "invert_mel_db",

@@ -4,7 +4,8 @@ python/mod.rs:203-233, and ``cache_stats``, fft_backend.rs:1071).
 Counterpart of ``spectrograms_tpu.cache``. The port's plan cache is its
 ``functools.lru_cache``'d host builders: the one-shots' plans, filterbanks,
 DFT matrices, the iSTFT's window-energy normalizer, the MFCC DCT and the
-decimation filters. ``fft_plan_cache_info`` reports each one's counters
+decimation filters, the CQT kernels and multirate groups, the gammatone IIR
+bank and the MDCT bases. ``fft_plan_cache_info`` reports each one's counters
 and, when a card is present, the CUDA memory PyTorch has allocated under the
 label ``device.cuda_memory_allocated`` (bytes; the JAX package reports its
 live arrays there). ``clear_fft_plan_cache`` empties every host cache.
@@ -21,13 +22,17 @@ __all__ = ["fft_plan_cache_info", "clear_fft_plan_cache", "cache_stats"]
 
 # label → module (under this package) whose cached builders it reports. The
 # package imports every one of them; they are looked up in ``sys.modules``
-# because the package rebinds some module names (``mfcc``) to functions.
+# because the package rebinds some module names (``mfcc``, ``mdct``) to
+# functions.
 _CACHE_MODULES = {
     "functions": "functions",
     "filterbanks": "ops.filterbanks",
+    "cqt_kernels": "ops.cqt",
     "dft_matrices": "ops.dft",
     "ola_norm": "ops.stft",
+    "erb": "erb",
     "mfcc_dct": "mfcc",
+    "mdct": "mdct",
     "decimate": "ops.decimate",
 }
 

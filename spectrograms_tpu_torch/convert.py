@@ -12,6 +12,11 @@ A multirate plan computes at its inner (decimated) geometry, so it takes
 the inner plan's constants: a JAX plan's ``_multirate_inner[1]._window`` and
 ``._mapping_t.T`` (an ``MfccPlan``'s through its ``_mel_plan``, a
 ``ChromaPlan``'s ``_mag_plan._window`` and ``_fb_t.T``, already decimated).
+
+A CQT plan's constants are its kernels: the fused ``[re | −im]`` matrix
+(``_cqt_ri``), its bands (``_cqt_bands``) when banding is on, and its
+multirate groups (``_cqt_multirate``, ``(d, k_ri, e0, flen, jp)``) when the
+plan runs the octave stack; a CQT plan takes no window or mapping.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ import numpy as np
 from .chroma import ChromaPlan
 from .errors import DimensionMismatchError, InvalidInputError
 from .mfcc import MfccPlan
-from .pipeline import SpectrogramPlan
+from .pipeline import FreqScale, SpectrogramPlan
 
 __all__ = ["plan_constants_from_numpy"]
 
@@ -35,7 +40,9 @@ def _f64(name, array, shape):
     return a
 
 
-def plan_constants_from_numpy(plan, window, mapping=None, dct_basis: Optional[np.ndarray] = None):
+def plan_constants_from_numpy(plan, window=None, mapping=None,
+                              dct_basis: Optional[np.ndarray] = None, cqt_ri=None, cqt_bands=None,
+                              cqt_groups=None):
     """Install ``window`` (n_fft,), ``mapping`` (n_out, n_bins) and, for an
     :class:`MfccPlan`, ``dct_basis`` (n_mels, n_mfcc) into ``plan``.
 
@@ -43,8 +50,18 @@ def plan_constants_from_numpy(plan, window, mapping=None, dct_basis: Optional[np
     plan's tier) is rebuilt from them. ``mapping`` is None for a linear
     plan, and the (12, n_bins) chroma filterbank for a :class:`ChromaPlan`.
     A multirate plan takes them at its inner geometry (n_fft/2^d).
-    Returns ``plan``.
+
+    A CQT plan takes ``cqt_ri`` (n_fft, 2·n_out) instead, and ``cqt_bands``
+    (``(start, stop, s, k_ri)`` each) and ``cqt_groups`` (``(d, k_ri, e0,
+    flen, jp)`` each) exactly when the plan has them. Returns ``plan``.
     """
+    cqt_args = (cqt_ri, cqt_bands, cqt_groups)
+    if isinstance(plan, SpectrogramPlan) and plan.freq_scale == FreqScale.CQT:
+        return _install_cqt(plan, window, mapping, dct_basis, *cqt_args)
+    if any(a is not None for a in cqt_args):
+        raise InvalidInputError("only a CQT plan takes cqt_ri, cqt_bands or cqt_groups")
+    if window is None:
+        raise InvalidInputError("a plan other than CQT needs its window")
     if isinstance(plan, ChromaPlan):
         if dct_basis is not None:
             raise InvalidInputError("only an MfccPlan takes dct_basis")
@@ -77,4 +94,31 @@ def plan_constants_from_numpy(plan, window, mapping=None, dct_basis: Optional[np
         if dct_basis is not None:
             raise InvalidInputError("only an MfccPlan takes dct_basis")
         spec_plan._install_constants(window64, mapping64)
+    return plan
+
+
+def _install_cqt(plan, window, mapping, dct_basis, cqt_ri, cqt_bands, cqt_groups):
+    if window is not None or mapping is not None or dct_basis is not None:
+        raise InvalidInputError("a CQT plan takes only cqt_ri, cqt_bands and cqt_groups")
+    if cqt_ri is None:
+        raise InvalidInputError("a CQT plan needs cqt_ri")
+    ri64 = _f64("cqt_ri", cqt_ri, tuple(plan._cqt_ri.shape))
+    if (cqt_bands is None) != (plan._cqt_bands is None):
+        raise InvalidInputError("cqt_bands must be given exactly when the plan is banded")
+    if (cqt_groups is None) != (plan._cqt_multirate is None):
+        raise InvalidInputError("cqt_groups must be given exactly when the plan is multirate")
+    bands64 = None
+    if cqt_bands is not None:
+        if len(cqt_bands) != len(plan._cqt_bands):
+            raise DimensionMismatchError(len(plan._cqt_bands), len(cqt_bands))
+        bands64 = [(int(start), int(stop), int(s), _f64("cqt_bands", k, tuple(mine[3].shape)))
+                   for (start, stop, s, k), mine in zip(cqt_bands, plan._cqt_bands)]
+    groups64 = None
+    if cqt_groups is not None:
+        if len(cqt_groups) != len(plan._cqt_multirate):
+            raise DimensionMismatchError(len(plan._cqt_multirate), len(cqt_groups))
+        groups64 = [(int(d), _f64("cqt_groups", k, tuple(mine[1].shape)), int(e0), int(flen),
+                     int(jp))
+                    for (d, k, e0, flen, jp), mine in zip(cqt_groups, plan._cqt_multirate)]
+    plan._install_cqt_constants(ri64, bands64, groups64)
     return plan

@@ -41,6 +41,7 @@ __all__ = [
     "real_dtype_name",
     "resolve_device",
     "check_true_f32",
+    "check_precision",
     "result_data",
 ]
 
@@ -180,6 +181,14 @@ def check_true_f32() -> None:
             "set_float32_matmul_precision); the port's float32 paths require "
             "true f32 matmuls"
         )
+
+
+def check_precision(precision) -> None:
+    """Accept ``None`` or a :class:`Precision`: the JAX package's precision
+    argument of the standalone CQT and MDCT, which changes no arithmetic
+    here (their products are true f32 or f64)."""
+    if precision is not None and not isinstance(precision, Precision):
+        raise InvalidInputError(f"precision must be a Precision, got {precision!r}")
 
 
 def dlpack_export(data: torch.Tensor, stream=None, max_version=None, dl_device=None,

@@ -25,6 +25,7 @@ __all__ = [
     "pad_amounts",
     "frame_signal",
     "framed_matmul",
+    "tail_framed_matmul",
     "frame_start_sample",
 ]
 
@@ -95,8 +96,13 @@ def framed_matmul(x: torch.Tensor, mat: torch.Tensor, n_fft: int, hop_size: int,
 
     where each ``X_j`` is a view of the padded signal with contiguous rows.
     Other hops build the frame matrix and take one matmul. ``mat`` is
-    (n_fft, n_out); returns (..., n_frames, n_out).
+    (n_fft, n_out); returns (..., n_frames, n_out) in the promoted dtype of
+    ``x`` and ``mat`` (``jnp.promote_types``), the products taken in at
+    least float32.
     """
+    out_dtype = torch.promote_types(x.dtype, mat.dtype)
+    acc_dtype = torch.promote_types(out_dtype, torch.float32)
+    x, mat = x.to(acc_dtype), mat.to(acc_dtype)
     if n_fft % hop_size == 0 and 1 < n_fft // hop_size <= _FRAMED_MATMUL_MAX_K:
         left, right, n_frames = pad_amounts(x.shape[-1], n_fft, hop_size, centre)
         k = n_fft // hop_size
@@ -111,5 +117,41 @@ def framed_matmul(x: torch.Tensor, mat: torch.Tensor, n_fft: int, hop_size: int,
         for j in range(k):
             part = base[..., j : j + n_frames, :] @ mat[j * hop_size : (j + 1) * hop_size]
             out = part if out is None else out + part
-        return out
-    return frame_signal(x, n_fft, hop_size, centre) @ mat
+        return out.to(out_dtype)
+    return (frame_signal(x, n_fft, hop_size, centre) @ mat).to(out_dtype)
+
+
+def tail_framed_matmul(x: torch.Tensor, mat: torch.Tensor, n_fft: int, hop_size: int, s: int,
+                       centre: bool = True):
+    """``frame_signal(x, n_fft, hop, centre)[..., n_fft−s:] @ mat``.
+
+    Contracts only the last ``s`` samples of every frame against ``mat``
+    ((s, n_out)): the banded-CQT primitive, where right-aligned kernels
+    shorter than the frame leave the leading columns structural zeros.
+    Framing (count, padding) is that of the full ``n_fft`` frames.
+
+    Without a frame matrix for ``s % hop == 0`` (the hopped decomposition of
+    :func:`framed_matmul` on the tail-shifted signal) and ``hop % s == 0``
+    (strided row slices of one reshape, ``s == hop`` included); other
+    shapes build the (n_frames, s) frames.
+    """
+    if s == n_fft:
+        return framed_matmul(x, mat, n_fft, hop_size, centre)
+    if not 0 < s < n_fft:
+        raise InvalidInputError(f"support must be in (0, n_fft], got {s}")
+    n = x.shape[-1]
+    left, right, n_frames = pad_amounts(n, n_fft, hop_size, centre)
+    off = n_fft - s
+    end = off + (n_frames - 1) * hop_size + s
+    extra = max(0, end - (n + left + right))
+    y = F.pad(x, (left, right + extra))[..., off:end]  # the first frame's tail starts at y[0]
+    if s % hop_size == 0 and s > hop_size:
+        return framed_matmul(y, mat, s, hop_size, centre=False)
+    if hop_size % s == 0:
+        step = hop_size // s
+        rows = (n_frames - 1) * step + 1
+        frames = y.reshape(*y.shape[:-1], rows, s)[..., ::step, :]
+    else:
+        frames = frame_signal(y, s, hop_size, centre=False)
+    out_dtype = torch.promote_types(x.dtype, mat.dtype)
+    return frames.to(out_dtype) @ mat.to(out_dtype)

@@ -1,7 +1,7 @@
 """Spectrogram plans and the result type, in PyTorch.
 
 Counterpart of ``spectrograms_tpu.pipeline`` for LINEAR / MEL / LOG_HZ / ERB
-× POWER / MAGNITUDE / DECIBELS. A plan builds its constants once (window,
+/ CQT × POWER / MAGNITUDE / DECIBELS. A plan builds its constants once (window,
 window-folded DFT matrices, filterbank, frequency axis) on its device and
 runs one of three methods:
 
@@ -26,6 +26,12 @@ unless given ``device="cpu"``.
 the plan factory, with the 15 named ``{scale}_{amp}_plan`` builders that
 return the typed plans of ``plans.py``.
 
+CQT plans (``FreqScale.CQT``) correlate unwindowed frames with the
+``[re | −im]`` kernels of ``ops/cqt.py`` in one framed matmul, or, when the
+truncation policy elects it, run the octave-stacked multirate CQT
+(``cqt.multirate_ri_blocks``) on a lazy decimation cascade; ``method`` does
+not change their arithmetic, and ``pallas`` refuses them, as in JAX.
+
 ``MelParams``/``LogHzParams(multirate=True)`` run the band-limited multirate
 route: an inner plan at n_fft/2^d, hop/2^d and sr/2^d (the same bin and
 frame grids) computes on an anti-aliased 2^d-decimated copy of the signal
@@ -44,6 +50,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .cqt import multirate_ri_blocks
 from .dtypes import (
     Precision,
     check_true_f32,
@@ -68,7 +75,8 @@ from .windows import WindowType, make_window
 from .ops import filterbanks as fb
 from .ops.decimate import band_limited_decimation_depth, decimate_pow2_framed
 from .ops.dft import MATMUL_MAX_N_FFT, rdft_matrices
-from .ops.framing import frame_count, frame_signal, framed_matmul
+from .ops import cqt as cqt_ops
+from .ops.framing import frame_count, frame_signal, framed_matmul, tail_framed_matmul
 from .ops import stft as stft_ops
 from .ops.fused_factored import (
     KernelConst,
@@ -234,6 +242,8 @@ def kernel_kwargs(method: str, precision: Precision) -> dict:
 
 def _resolve_method(method: str, n_fft: int, hop: int, dtype, freq_scale,
                     precision, device: torch.device) -> str:
+    if freq_scale == FreqScale.CQT and method == "f32x2":
+        raise InvalidInputError("method='f32x2' does not cover CQT plans")
     if method.startswith("pallas:"):
         parse_pallas_method(method)  # validates the options eagerly
     elif method in ("factored", "f32x2"):
@@ -296,13 +306,12 @@ class SpectrogramPlan:
         stft_p = params.stft
         n_fft, hop = stft_p.n_fft, stft_p.hop_size
         sr = params.sample_rate_hz
-        if freq_scale == FreqScale.CQT:
-            raise InvalidInputError("CQT plans are not yet ported")
         self.method = _resolve_method(
             method, n_fft, hop, self._dtype, freq_scale, self.precision, self.device
         )
 
         mapping = None  # (n_out, n_bins) f64, or None for identity
+        self._cqt_bands = self._cqt_multirate = None
         if freq_scale == FreqScale.LINEAR:
             freqs = np.arange(r2c_output_size(n_fft), dtype=np.float64) * (sr / n_fft)
         elif freq_scale == FreqScale.MEL:
@@ -322,6 +331,8 @@ class SpectrogramPlan:
             if scale_params.f_max > params.nyquist_hz():
                 raise InvalidInputError("f_max must be <= Nyquist")
             mapping, freqs = fb.erb_filterbank(sr, n_fft, scale_params)
+        elif freq_scale == FreqScale.CQT:
+            freqs = self._init_cqt(scale_params, stft_p.centre)
         else:
             raise InvalidInputError(f"unknown freq scale {freq_scale}")
         self.frequencies = np.asarray(freqs, dtype=np.float64)
@@ -333,6 +344,8 @@ class SpectrogramPlan:
         self._n_fft, self._hop, self._centre = n_fft, hop, stft_p.centre
 
         if self.method.startswith("pallas"):
+            if freq_scale == FreqScale.CQT:
+                raise InvalidInputError("method='pallas' does not cover CQT plans")
             if self.precision == Precision.HIGHEST:
                 raise InvalidInputError(
                     "method='pallas' keeps the JAX package's precision contract "
@@ -351,6 +364,59 @@ class SpectrogramPlan:
         self._install_constants(window64, mapping)
         if freq_scale in (FreqScale.MEL, FreqScale.LOG_HZ) and scale_params.multirate:
             self._init_multirate(method, window64)
+
+    def _init_cqt(self, scale_params, centre: bool) -> np.ndarray:
+        """The CQT constants (``pipeline.py:398-485`` of the JAX package);
+        returns the bin frequencies.
+
+        The truncation policy (``ops.cqt.resolve_cqt_policy``) may elect the
+        full-Q octave stack, and ``self.scale_params`` then says so. The
+        fused ``[re | −im]`` kernel ``_cqt_ri`` (n_fft, 2·n_out) gives re and
+        im from one pass over the frames; it is also the single-rate
+        fallback of ``compute_frame`` on a multirate plan. Bands
+        (``CQT_BANDING``) contract each bin band against its frame tail
+        only. Built in f64 and cast to the plan's dtype."""
+        if not isinstance(scale_params, CqtParams):
+            raise InvalidInputError("cqt plan requires CqtParams")
+        stft_p = self.params.stft
+        n_fft, hop, sr = stft_p.n_fft, stft_p.hop_size, self.params.sample_rate_hz
+        if scale_params.bin_frequency(scale_params.num_bins - 1) >= sr / 2.0:
+            raise InvalidInputError("CQT maximum frequency must be below Nyquist frequency")
+        scale_params = cqt_ops.resolve_cqt_policy(scale_params, sr, n_fft, hop, centre)
+        self.scale_params = scale_params
+        k_re, k_im, freqs = cqt_ops.cqt_kernel_matrices(scale_params, sr, n_fft)
+        self._cqt_n_out = k_re.shape[0]
+        bands = (
+            cqt_ops.plan_cqt_bands(cqt_ops.cqt_kernel_lengths(scale_params, sr, n_fft), n_fft, hop)
+            if cqt_ops.CQT_BANDING else [(0, self._cqt_n_out, n_fft)]
+        )
+        groups = None
+        if scale_params.multirate:
+            groups, _ = cqt_ops.multirate_cqt_groups(scale_params, sr, n_fft, hop, centre,
+                                                     depth=scale_params.multirate_depth)
+            self._cqt_mr_composite = scale_params.multirate_depth == "max"
+        self._install_cqt_constants(
+            np.concatenate([k_re.T, k_im.T], axis=1),
+            None if len(bands) == 1 else [
+                (start, stop, s, np.concatenate([k_re[start:stop, n_fft - s:].T,
+                                                 k_im[start:stop, n_fft - s:].T], axis=1))
+                for start, stop, s in bands],
+            groups,
+        )
+        return freqs
+
+    def _install_cqt_constants(self, ri64: np.ndarray, bands64, groups64) -> None:
+        """(Re)build the CQT's device constants from f64 arrays: the
+        (n_fft, 2·n_out) kernel, the bands ``(start, stop, s, k_ri)`` or
+        None, and the multirate groups ``(d, k_ri, e0, flen, jp)`` or None."""
+        dt, dev = self._dtype, self.device
+        self._cqt_ri = torch.tensor(ri64, dtype=dt, device=dev)
+        self._cqt_bands = None if bands64 is None else [
+            (start, stop, s, torch.tensor(k, dtype=dt, device=dev))
+            for start, stop, s, k in bands64]
+        self._cqt_multirate = None if groups64 is None else [
+            (d, torch.tensor(k, dtype=dt, device=dev), e0, flen, jp)
+            for d, k, e0, flen, jp in groups64]
 
     def _init_multirate(self, method: str, window64: np.ndarray) -> None:
         """The band-limited multirate route (``pipeline.py:605-690`` of the
@@ -418,6 +484,9 @@ class SpectrogramPlan:
             None if mapping64 is None
             else torch.tensor(mapping64.T, dtype=dt, device=dev)  # (n_bins, n_out)
         )
+        if self.freq_scale == FreqScale.CQT:  # the kernels carry their own window
+            self._forward = self._forward_impl
+            return
         if self.method == "matmul" or self.method.startswith("pallas"):
             c, s = rdft_matrices(self._n_fft, window64, dt, dev)
             # One (n_fft, 2·n_bins) [C | S] constant: one product gives re and im.
@@ -449,6 +518,15 @@ class SpectrogramPlan:
 
     def _frames_to_bins(self, frames):
         """(..., n_frames, n_fft) raw frames → (..., n_frames, n_out) features."""
+        if self.freq_scale == FreqScale.CQT:
+            # Unwindowed frames: the kernels carry their own window.
+            if self._cqt_bands is not None:
+                mapped = torch.cat([
+                    self._cqt_power(frames[..., self._n_fft - s:] @ k_ri, stop - start)
+                    for start, stop, s, k_ri in self._cqt_bands], dim=-1)
+            else:
+                mapped = self._cqt_power(frames @ self._cqt_ri)
+            return _apply_amp(mapped, self.amp_scale, self._floor_db)
         if self.method == "fft":
             spec = torch.fft.rfft(frames * self._window, dim=-1)
             return self._bins(spec.real, spec.imag)
@@ -461,6 +539,39 @@ class SpectrogramPlan:
             check_true_f32()
         return self._frames_to_bins(frames)
 
+    def _cqt_power(self, ri, n_out: Optional[int] = None):
+        """|re|² + |im|² of a [re | −im] product."""
+        n_out = self._cqt_n_out if n_out is None else n_out
+        re, im = ri[..., :n_out], ri[..., n_out:]
+        return re * re + im * im
+
+    def _cqt_mr_forward(self, x, level_provider=None):
+        """The octave-stacked CQT, (..., n) → (..., n_out, n_frames).
+        ``level_provider`` lets a ``FeatureSet`` hand in its shared cascade."""
+        if x.is_cuda and x.dtype == torch.float32:
+            check_true_f32()
+        nf = frame_count(x.shape[-1], self._n_fft, self._hop, self._centre)
+        blocks = multirate_ri_blocks(x, self._cqt_multirate, self._hop, nf, self.precision,
+                                     composite=self._cqt_mr_composite,
+                                     level_provider=level_provider)
+        mapped = torch.cat([self._cqt_power(ri, ri.shape[-1] // 2) for ri in blocks], dim=-1)
+        return _apply_amp(mapped, self.amp_scale, self._floor_db).transpose(-1, -2)
+
+    def _cqt_forward(self, x):
+        """The CQT plan's forward: the octave stack, or the framed matmul of
+        the dense kernels (of each band against its frame tail when banded)."""
+        if self._cqt_multirate is not None:
+            return self._cqt_mr_forward(x)
+        if self._cqt_bands is not None:
+            mapped = torch.cat([
+                self._cqt_power(tail_framed_matmul(x, k_ri, self._n_fft, self._hop, s,
+                                                   self._centre), stop - start)
+                for start, stop, s, k_ri in self._cqt_bands], dim=-1)
+        else:
+            mapped = self._cqt_power(framed_matmul(x, self._cqt_ri, self._n_fft, self._hop,
+                                                   self._centre))
+        return _apply_amp(mapped, self.amp_scale, self._floor_db).transpose(-1, -2)
+
     def _forward_impl(self, x):
         """The plain path: (..., n) → (..., n_out, n_frames)."""
         if self._multirate_inner is not None:
@@ -468,6 +579,8 @@ class SpectrogramPlan:
             return inner._forward_impl(self._mr_pre(x))[..., : self._mr_frames(x.shape[-1])]
         if x.is_cuda and x.dtype == torch.float32:
             check_true_f32()
+        if self.freq_scale == FreqScale.CQT:
+            return self._cqt_forward(x)
         if self.method == "matmul":
             # Window folded into [C | S], so frames stay raw: one pass over
             # the signal's hop slices gives re and im together.
@@ -534,9 +647,20 @@ class SpectrogramPlan:
 
         A multirate plan runs the full-rate path here and warns once: its
         frames match ``compute()``'s decimated route to ~1e-5 relative, not
-        bit for bit.
+        bit for bit. A multirate CQT plan falls back to the truncated
+        single-rate kernels (one frame lacks the low octaves' context), and
+        warns once that its low bins will not match ``compute()``.
         """
         x = self._validate_signal(samples)
+        if (self.freq_scale == FreqScale.CQT and self._cqt_multirate is not None
+                and not getattr(self, "_warned_multirate_frame", False)):
+            warnings.warn(
+                "compute_frame on a multirate CQT plan uses the truncated "
+                "single-rate kernels (a lone frame lacks the low-octave "
+                "context); low-bin values will not match compute()",
+                stacklevel=2,
+            )
+            self._warned_multirate_frame = True
         if self._multirate_inner is not None and not getattr(self, "_warned_multirate_frame", False):
             warnings.warn(
                 "compute_frame on a multirate mel/log-Hz plan runs the "
@@ -563,17 +687,26 @@ class SpectrogramPlan:
     def _fs_cascade_spec(self):
         """``(composite, precision, pad, depths)`` of the decimation front
         end, or None: members of a ``FeatureSet`` with equal (composite,
-        precision) share one ``DecimationCascade``."""
+        precision) share one ``DecimationCascade``. A multirate CQT reads
+        its levels unpadded, at its own composite mode and its precision."""
+        if self._cqt_multirate is not None:
+            depths = tuple(sorted({g[0] for g in self._cqt_multirate if g[0]}))
+            if not depths:
+                return None
+            return (self._cqt_mr_composite, self.precision, 0, depths)
         if self._multirate_inner is None:
             return None
         return (True, self._mr_decim_prec, self._mr_pad, (self._multirate_inner[0],))
 
     def _fs_forward_batch(self, xb, cascade=None):
         """Batched forward for a ``FeatureSet``, on its shared cascade."""
-        if cascade is None or self._multirate_inner is None:
+        if cascade is None or self._fs_cascade_spec() is None:
             return self._forward(xb)
-        d, inner = self._multirate_inner
         n = xb.shape[-1]
+        if self._cqt_multirate is not None:
+            return self._cqt_mr_forward(
+                xb, level_provider=lambda d: cascade.level_slice(d, 0, -(-n // (1 << d))))
+        d, inner = self._multirate_inner
         y = cascade.level_slice(d, self._mr_pad, -(-(n + 2 * self._mr_pad) // (1 << d)))
         return inner._forward(y * self._mr_gain)[..., : self._mr_frames(n)]
 

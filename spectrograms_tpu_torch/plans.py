@@ -7,8 +7,8 @@ Counterpart of ``spectrograms_tpu.plans``: the reference's 15-class matrix
 fixed, built directly (``MelDbPlan(params, mel, db)``) or by the planner's
 named builders. They take the plan's ``dtype``, ``method``, ``precision``
 and ``device`` (CUDA unless ``device="cpu"``); ``auto`` picks the fused
-kernels for mel, log-Hz and ERB on CUDA as ``SpectrogramPlan`` does. The
-three ``Cqt*Plan`` classes raise until CQT plans are ported.
+kernels for mel, log-Hz and ERB on CUDA as ``SpectrogramPlan`` does; the
+three ``Cqt*Plan`` classes run the CQT of ``ops/cqt.py``.
 """
 
 from __future__ import annotations

@@ -7,8 +7,17 @@
   ``compute_batch`` at depth ≤ 2, in any member order
   (``tests/test_featureset.py:67-78``, ``:207-233``, ``:262``);
 - the cascade flavours, ``compute`` on one signal, gradients and the
-  validation errors.
+  validation errors;
+- CQT members: a full-Q multirate CQT and a multirate chroma in one set
+  against JAX's set (member by member, the same flavour keys and number of
+  cascades) and the CQT member against its standalone plan at
+  ``tests/test_featureset.py:80-113``'s two bounds; an MDCT round-trip
+  callable; gradients through a CQT + chroma set; ``benchmarks/suite.py``
+  config 4's step (CQT-84, multirate chroma, MDCT round trip) at a batch of
+  2 × 5 s against JAX's ``fs._step_impl``.
 """
+
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +29,8 @@ import spectrograms_tpu as sg
 import spectrograms_tpu_torch as tg
 from spectrograms_tpu.chroma import ChromaPlan as JaxChromaPlan
 from spectrograms_tpu.mfcc import MfccPlan as JaxMfccPlan
+
+tmdct = importlib.import_module("spectrograms_tpu_torch.mdct")
 
 SR = 44100.0
 
@@ -167,3 +178,138 @@ def test_validation(xb):
         fs.compute_batch(xb[0])  # 1-D where a batch is expected
     with pytest.raises(tg.InvalidInputError):
         fs.compute(xb)
+
+
+# ---- CQT members (config 4) ----------------------------------------------------------------
+
+def cqt(m, cqt_params=None, dtype="float32"):
+    kw = dict(device="cpu") if m is tg else {}
+    p = cqt_params(m) if cqt_params is not None else m.CqtParams(12, 7, 32.703)
+    return m.CqtPowerPlan(m.SpectrogramParams(m.StftParams(4096, 1024), SR), p, dtype=dtype,
+                          **kw)
+
+
+def mdct_roundtrip(m, window=512):
+    """Config 4's MDCT member: ``jax.vmap`` of ``mdct_one`` in JAX
+    (``benchmarks/suite.py:198-203``); the port's private impls take the
+    batch axis."""
+    mp = m.MdctParams.sine_window(window)
+    if m is sg:
+        def one(sig):
+            return sg.imdct(sg.mdct(sig, mp, dtype="float32"), mp, original_length=sig.shape[0])
+        return lambda b: jax.vmap(one)(b)
+
+    def rt(b):
+        fwd, inv = tmdct._consts_for(mp, False, b.dtype, b.device)
+        c = tmdct._mdct_impl(b, fwd, mp.window_size, mp.hop_size)
+        return tmdct._imdct_impl(c.transpose(-1, -2), inv, mp.window_size, mp.hop_size)[
+            ..., : b.shape[-1]]
+    return rt
+
+
+@pytest.fixture(scope="module")
+def x8():
+    return np.random.default_rng(7).standard_normal((1, int(SR) * 8)).astype(np.float32)
+
+
+@pytest.mark.parametrize("form", ["auto", "min"])
+def test_cqt_chroma_set_matches_jax_and_standalone(x8, form):
+    """``auto``: config 4's CQT, whose policy elects the octave stack at
+    depth "max" (composite stages) and shares one cascade with the chroma;
+    ``min``: an explicit full-Q stack at depth "min" (single half-band
+    stages, pad 0), a flavour of its own, so two cascades, as in JAX."""
+    params = None if form == "auto" else (lambda m: m.CqtParams(12, 7, 32.703).with_multirate())
+    tcq, jcq = cqt(tg, params), cqt(sg, params)
+    assert tcq.scale_params.multirate and tcq._cqt_mr_composite == (form == "auto")
+    tfs, jfs = tg.FeatureSet([tcq, chroma(tg)]), sg.FeatureSet([jcq, chroma(sg)])
+    assert len(tfs._flavors) == len(jfs._flavors) == (1 if form == "auto" else 2)
+    assert ({(c, p.value) for c, p in tfs._flavors}
+            == {(c, p.name.lower()) for c, p in jfs._flavors})
+    assert sorted(tfs._flavors.values()) == sorted(jfs._flavors.values())
+    got = tfs.compute_batch(x8)
+    for g, w in zip(got, jfs.compute_batch(x8)):
+        w = np.asarray(w)
+        assert tuple(g.shape) == w.shape
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-5 * rel_max(w))
+    # the member against its standalone plan (tests/test_featureset.py:80-113):
+    # the middle third to float noise, edge frames within the cascade's class
+    g, w = got[0].numpy(), tcq.compute_batch(x8).numpy()
+    nf = g.shape[-1]
+    mid = (Ellipsis, slice(nf // 3, 2 * nf // 3))
+    np.testing.assert_allclose(g[mid], w[mid], rtol=5e-5, atol=5e-5 * np.abs(w).max())
+    np.testing.assert_allclose(g, w, rtol=0, atol=5e-3 * np.abs(w).max())
+    assert torch.equal(got[1], tfs._members[1].compute_batch(x8))
+
+
+def test_mdct_callable_member(xb):
+    """``tests/test_featureset.py:136-156``: a plain mel plan and an MDCT
+    round trip ride along; the round trip equals JAX's vmapped one."""
+    params = lambda m: m.SpectrogramParams(m.StftParams(4096, 1024), SR)
+    melp = lambda m, **kw: m.MelDbPlan(params(m), m.MelParams(64, 0.0, 8000.0),
+                                       m.LogParams(-80.0), dtype="float32", **kw)
+    tmel = melp(tg, device="cpu")
+    got_mel, got_rt = tg.FeatureSet([tmel, mdct_roundtrip(tg)]).compute_batch(xb)
+    assert torch.equal(got_mel, tmel.compute_batch(xb))
+    want_mel, want_rt = sg.FeatureSet([melp(sg), mdct_roundtrip(sg)]).compute_batch(xb)
+    want_rt = np.asarray(want_rt)
+    assert tuple(got_rt.shape) == want_rt.shape and got_rt.shape[0] == xb.shape[0]
+    np.testing.assert_allclose(got_rt.numpy(), want_rt, rtol=0, atol=1e-4 * rel_max(want_rt))
+    np.testing.assert_allclose(got_mel.numpy(), np.asarray(want_mel), rtol=0, atol=1e-3)
+    # the interior is the signal back (tests/test_mdct.py's f32 bar)
+    n = got_rt.shape[1]
+    assert float((got_rt[:, 512:n - 512] - torch.from_numpy(xb)[:, 512:n - 512]).abs().max()) < 1e-3
+
+
+def test_gradients_through_a_cqt_chroma_set():
+    """``tests/test_featureset.py:174-193``: the gradient through a CQT +
+    chroma step is finite; with the chroma on its kernel route (whose
+    backward runs the plain version, ``ops.gradients``) it equals plain
+    autograd through the same set with the chroma at ``method="matmul"``,
+    and JAX's gradient."""
+    xs = np.random.default_rng(3).standard_normal((2, int(SR))).astype(np.float32)
+    small = lambda m: m.CqtParams(12, 4, 65.4)
+    grads = []
+    for method in ("pallas", "matmul"):
+        fs = tg.FeatureSet([cqt(tg, small), chroma(tg, method)])
+        x = torch.from_numpy(xs).requires_grad_(True)
+        a, b = fs._step_impl(x)
+        (a.sum() + b.sum()).backward()
+        assert bool(torch.isfinite(x.grad).all()) and float(x.grad.abs().max()) > 0
+        grads.append(x.grad)
+    np.testing.assert_allclose(grads[0].numpy(), grads[1].numpy(), rtol=0,
+                               atol=1e-4 * float(grads[1].abs().max()))
+    jfs = sg.FeatureSet([cqt(sg, small), chroma(sg)])
+
+    def loss(v):
+        a, b = jfs._step_impl(v)
+        return jnp.sum(a) + jnp.sum(b)
+
+    g_ref = np.asarray(jax.grad(loss)(jnp.asarray(xs)))
+    np.testing.assert_allclose(grads[0].numpy(), g_ref, rtol=0, atol=1e-3 * rel_max(g_ref))
+
+
+def test_config4_step_matches_jax():
+    """``benchmarks/suite.py`` config 4 (``:155-243``) at a batch of 2 × 5 s:
+    CQT-84 from C1 (the policy elects the octave stack), the multirate
+    ``music_standard`` chroma and the MDCT round trip (sine window 512), as
+    one ``FeatureSet`` step, against JAX's ``fs._step_impl`` member by
+    member; the standalone dense ``truncate=True`` CQT likewise."""
+    xs = np.random.default_rng(2).standard_normal((2, int(SR) * 5)).astype(np.float32)
+    sets = {}
+    for m in (sg, tg):
+        c = cqt(m)
+        assert c.scale_params.multirate and c.scale_params.multirate_depth == "max"
+        sets[m] = m.FeatureSet([c, chroma(m), mdct_roundtrip(m)])
+    got = sets[tg].compute_batch(xs)
+    want = sets[sg]._step_impl(jnp.asarray(xs))
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert tuple(g.shape) == w.shape and g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-5 * rel_max(w))
+    dense = lambda m, **kw: m.CqtPowerPlan(
+        m.SpectrogramParams(m.StftParams(4096, 1024), SR),
+        m.CqtParams(12, 7, 32.703).with_truncate(True), dtype="float32", **kw)
+    w = np.asarray(jax.vmap(dense(sg)._forward_impl)(jnp.asarray(xs)))
+    np.testing.assert_allclose(dense(tg, device="cpu")._forward_impl(torch.from_numpy(xs)).numpy(),
+                               w, rtol=0, atol=1e-5 * rel_max(w))

@@ -179,14 +179,18 @@ def test_plan_surface_matches_jax():
 ])
 def test_parts_not_yet_ported_raise(build):
     """Each part of the JAX surface that the port lacks raises "not yet
-    ported". The parts ported since (the multirate plans, ``compute_frame``
-    and ``StftPlan``) build and compute instead: finite values of the
-    expected shape, here; their parity tests are
-    ``tests/test_torch_port_multirate.py``, ``test_torch_port_streaming.py``
-    and ``test_torch_port_stft.py``."""
+    ported". The parts ported since (CQT plans, the multirate plans,
+    ``compute_frame`` and ``StftPlan``) build and compute instead: finite
+    values of the expected shape, here; their parity tests are
+    ``tests/test_torch_port_cqt.py``, ``test_torch_port_multirate.py``,
+    ``test_torch_port_streaming.py`` and ``test_torch_port_stft.py``."""
     params = tg.SpectrogramParams(tg.StftParams(1024, 256), SR)
     x = noise(16000, seed=17, dtype=np.float32)
     ported = {
+        "cqt": lambda: tg.SpectrogramPlan(
+            params, tg.FreqScale.CQT, tg.AmpScale.POWER,
+            scale_params=tg.CqtParams(12, 4, 55.0), device="cpu",
+        ).compute_raw(x),
         "multirate": lambda: tg.SpectrogramPlan(
             params, tg.FreqScale.MEL, tg.AmpScale.POWER,
             scale_params=tg.MelParams(40, 0.0, 2000.0, multirate=True), device="cpu",
@@ -211,11 +215,7 @@ def test_parts_not_yet_ported_raise(build):
         assert bool(torch.isfinite(out).all())
         return
     with pytest.raises(tg.InvalidInputError, match="not yet ported"):
-        if build == "cqt":
-            tg.SpectrogramPlan(params, tg.FreqScale.CQT, tg.AmpScale.POWER,
-                               scale_params=tg.CqtParams(12, 4, 55.0), device="cpu")
-        else:
-            plan(tg, "mel", "db", method=build)
+        plan(tg, "mel", "db", method=build)
 
 
 def test_method_errors_match_jax():

@@ -4,8 +4,8 @@ Same numpy inputs (seeded) through both packages, on the CPU:
 
 - the 15 typed plans (``plans.py``) and the planner's 15 named builders:
   the JAX output at rtol 1e-9 in f64 and 1e-3 dB / 1e-4·max in f32 (the
-  bar of ``tests/test_torch_port_pipeline.py``); the three CQT classes raise
-  "not yet ported";
+  bar of ``tests/test_torch_port_pipeline.py``), the three CQT classes
+  included (``tests/test_torch_port_cqt.py`` holds their other forms);
 - the 15 ``compute_*_spectrogram`` one-shots at the same tolerances, and at
   ``precision=DEFAULT`` on the kernel route against the JAX plan's tier;
 - ``tests/test_dtype_matrix.py``'s matrix (output dtypes, f32 ≈ f64,
@@ -65,10 +65,6 @@ def test_typed_plan_matches_jax(scale, amp, dtype):
     name = f"{scale}{amp}Plan"
     cls = getattr(tg, name)
     args, kw = typed_args(tg, scale, amp)
-    if scale == "Cqt":
-        with pytest.raises(tg.InvalidInputError, match="CQT plans are not yet ported"):
-            cls(*args, dtype=dtype, **kw, **CPU)
-        return
     x = noise(16000, seed=len(name), dtype=np.dtype(dtype))
     jargs, jkw = typed_args(sg, scale, amp)
     ref = np.asarray(getattr(sg, name)(*jargs, dtype=dtype, **jkw).compute_raw(x))
@@ -90,10 +86,6 @@ def test_planner_builder_returns_typed(scale, amp):
     args, kw = typed_args(tg, scale, amp)
     builder = getattr(planner, name)
     assert builder.__name__ == name
-    if scale == "Cqt":
-        with pytest.raises(tg.InvalidInputError, match="CQT plans are not yet ported"):
-            builder(*args, **kw)
-        return
     plan = builder(*args, **kw)
     assert type(plan) is getattr(tg, f"{scale}{amp}Plan")
     assert (plan.dtype, plan.method, plan.device) == ("float64", "fft", torch.device("cpu"))
@@ -111,15 +103,14 @@ def test_generic_builders_match_jax():
     x = noise(8000, seed=11)
     jp, tp = sg.SpectrogramPlanner(dtype="float64"), tg.SpectrogramPlanner(dtype="float64", **CPU)
     for name, i, amp in (("linear_plan", None, "POWER"), ("mel_plan", 1, "DECIBELS"),
-                         ("erb_plan", 2, "MAGNITUDE"), ("log_hz_plan", 3, "POWER")):
+                         ("erb_plan", 2, "MAGNITUDE"), ("log_hz_plan", 3, "POWER"),
+                         ("cqt_plan", 4, "DECIBELS")):
         jargs = (jc[0],) if i is None else (jc[0], jc[i])
         targs = (tc[0],) if i is None else (tc[0], tc[i])
         jdb, tdb = (jc[5], tc[5]) if amp == "DECIBELS" else (None, None)
         ref = getattr(jp, name)(*jargs, amp=getattr(sg.AmpScale, amp), db=jdb).compute_raw(x)
         out = getattr(tp, name)(*targs, amp=getattr(tg.AmpScale, amp), db=tdb).compute_raw(x)
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-9, atol=1e-12)
-    with pytest.raises(tg.InvalidInputError, match="CQT plans are not yet ported"):
-        tp.cqt_plan(tc[0], tc[4])
 
 
 def test_typed_plan_matches_generic():
@@ -175,10 +166,6 @@ def test_one_shot_matches_jax(scale, amp, dtype):
     x = noise(8000, seed=len(name), dtype=np.dtype(dtype))
     fn = getattr(tg, name)
     assert fn.__name__ == name and name in tg.__all__
-    if scale == "Cqt":
-        with pytest.raises(tg.InvalidInputError, match="CQT plans are not yet ported"):
-            fn(x, *args, dtype=dtype, **kw, **CPU)
-        return
     jargs, jkw = typed_args(sg, scale, amp)
     ref = getattr(sg, name)(x, *jargs, dtype=dtype, **jkw)
     spec = fn(x, *args, dtype=dtype, **kw, **CPU)
