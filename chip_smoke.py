@@ -74,7 +74,21 @@ beside this run's:
    members alone and on their own (``separate``), the dense CQT step, the
    cascade and the gammatone lowerings, the step's peak memory, and a
    ``torch.profiler`` breakdown of one step;
-10. the ``kernels`` JSON line, the card line, and the result line
+10. the 1-D/2-D FFT and image family and the f64-grade tiers
+   (``fft_image_phase``): config 5 of ``benchmarks/suite.py`` (a 64-frame
+   mel-dB block at 512/128 and a 512² Gaussian blur then edge detection)
+   against numpy in f64, its step and parts timed; the cuFFT and dense-product
+   routes of the image filters at 256², 512² and 1024², timed (the numbers
+   behind ``ops/spectral2d.py``'s ``use_matmul_path``); ``fft_convolve``,
+   ``fft_deconvolve``, ``OverlapSaveConvolver.process_signal`` on 10 s
+   (against ``np.convolve`` and a loop of ``process_block``),
+   ``minimum_phase`` and ``fft2d``/``ifft2d`` on 1024² at f32 and f64;
+   config 8 (the ``f32x2`` linear-power plan at 256/128, the
+   ``stft_x2``/``istft_x2`` round trip, ``fft2d_x2`` on 128²) against numpy
+   in f64, the f64 route timed beside the op-for-op double-double route; an
+   ``f32x2`` mel-128 plan on 10 s; ``method="factored"`` on the flagship batch
+   against ``matmul``, timed beside ``auto`` (the f32 kernel) and ``fft``;
+11. the ``kernels`` JSON line, the card line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero, printing no result, when CUDA is unavailable. Imports
@@ -998,6 +1012,336 @@ def config4_phase(tg, ff, dev, card, batch: int = 64) -> None:
     print(f"[9 phase] {time.perf_counter() - t_phase:.1f} s")
 
 
+# Phase 10's limits. Image results in f32 against numpy f64 of the same
+# function at tests/test_spectral2d.py's 2e-4 (absolute, on unit-variance
+# images), in f64 at 1e-10 (tests/test_fft2d.py); the mel-dB block at 1e-3 dB
+# (tests/test_torch_port_plans.py's bar for f32 plans). 1-D convolution and
+# the overlap-save convolver in f32 at 1e-5 of the output's peak, the
+# deconvolution and minimum phase in f64 at 1e-10 (tests/test_convolution.py).
+# The 2-D FFT of a 1024² image: f64 within 1e-13 of the peak against numpy,
+# f32 within 1e-5 (the same transform rounded in f32); the round trips at
+# 1e-12 (f64) and 1e-5 (f32) absolute. The f64-grade tier at
+# tests/test_f32x2.py's bounds: the plan 1e-9 relative to numpy f64 (config
+# 8: of the peak; the mel-128 plan: per element), stft_x2 → istft_x2 1e-12
+# of the RMS, fft2d_x2 1e-12 of the peak, |lo| <= 1e-6 max|hi|; the
+# factored plan against method="matmul" at tests/test_fft_factored.py's
+# 2e-3 dB.
+P10_IMG, P10_IMG64, P10_DB = 2e-4, 1e-10, 1e-3
+P10_CONV, P10_EXACT64 = 1e-5, 1e-10
+P10_FFT2_64, P10_FFT2_32, P10_RT64, P10_RT32 = 1e-13, 1e-5, 1e-12, 1e-5
+P10_PLAN, P10_X2, P10_LO, P10_FACTORED = 1e-9, 1e-12, 1e-6, 2e-3
+
+
+def fft_image_phase(tg, ff, dev, card, batch: int = 32) -> None:
+    """Phase 10: the 1-D/2-D FFT and image family and the f64-grade method
+    tiers (config 5 and config 8 of ``benchmarks/suite.py``, at their own
+    sizes; see the module docstring); a smaller ``batch`` of the flagship
+    rehearses it. Each check prints its reading before a failure ends the
+    run."""
+    from spectrograms_tpu_torch.ops import dd as D
+    from spectrograms_tpu_torch.ops import spectral2d as s2
+    from spectrograms_tpu_torch.ops.filterbanks import mel_filterbank
+    from spectrograms_tpu_torch.ops.framing import frame_signal
+
+    counters = (ff.fused_factored_features, ff.fused_tier_features)
+
+    def check(label, ok, reading):
+        print(f"[10 {label}] {reading} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"fft and image phase: {label}")
+
+    def counted(fn):
+        """fn() with both kernels' counts set to 0 just before it and read
+        just after: (result, (f32 launches, tier launches))."""
+        for c in counters:
+            c.launches = 0
+        with torch.no_grad():
+            out = fn()
+        torch.cuda.synchronize()
+        return out, tuple(c.launches for c in counters)
+
+    def err(a, b):
+        return float((torch.as_tensor(a) - torch.as_tensor(b)).abs().max())
+
+    def hann(n):
+        return tg.make_window(tg.WindowType.hanning, n)
+
+    t_phase = time.perf_counter()
+    on = dict(device=dev)
+
+    # ---- 10a. config 5: a mel-dB block and a 512² blur + edge detection ------
+    c5 = tg.MelDbPlan(tg.SpectrogramParams(tg.StftParams(512, 128, centre=False), SR),
+                      tg.MelParams(64, 0.0, 8000.0, tg.MelNorm.SLANEY), tg.LogParams(-80.0),
+                      dtype="float32", **on)
+    frames_np = np.random.default_rng(3).standard_normal((64, 512)).astype(np.float32)
+    img_np = np.random.default_rng(4).standard_normal((512, 512)).astype(np.float32)
+    ker_np = np.asarray(tg.gaussian_kernel_2d(9, 2.0), dtype=np.float32)
+    frames = torch.from_numpy(frames_np).to(dev)
+    img = torch.from_numpy(img_np).to(dev)
+    ker_t = torch.from_numpy(ker_np).to(dev)  # on the device, as suite.py device_puts it
+
+    def feats():
+        return c5._forward_frames(frames)
+
+    def blur(x, kernel=ker_t):
+        return tg.convolve_fft(x, kernel, **on)
+
+    def step():
+        f = feats()
+        edges = tg.detect_edges_fft(blur(img + f.sum() * 1e-30), **on)
+        return f, edges
+
+    (f5, e5), l5 = counted(step)
+    spec = np.fft.rfft(frames_np.astype(np.float64) * hann(512), axis=-1)
+    mel64 = (np.abs(spec) ** 2) @ mel_filterbank(SR, 512, tg.MelParams(64, 0.0, 8000.0,
+                                                                      tg.MelNorm.SLANEY)).T
+    db_ref = 10.0 * np.log10(np.maximum(mel64, 1e-8))
+    from spectrograms_tpu_torch.image_ops import _lowpass_mask, _pad_kernel_for_fft
+    padded = _pad_kernel_for_fft(ker_np.astype(np.float64), (512, 512))
+    blur64 = np.fft.irfft2(np.fft.rfft2(img_np.astype(np.float64)) * np.fft.rfft2(padded),
+                           s=(512, 512))
+    hp_half = 1.0 - _lowpass_mask((512, 257), 0.1)
+    edges64 = np.fft.irfft2(np.fft.rfft2(blur64) * hp_half, s=(512, 512))
+    e_db = err(f5.cpu().double(), db_ref)
+    e_edges = err(e5.cpu().double(), edges64)
+    with torch.no_grad():
+        e_blur = err(blur(img).cpu().double(), blur64)
+        img64 = img.double()
+        e64 = err(tg.detect_edges_fft(tg.convolve_fft(img64, ker_np.astype(np.float64), **on),
+                                      **on).cpu(), edges64)
+    check("config 5 step", e_db <= P10_DB and max(e_blur, e_edges) <= P10_IMG
+          and e64 <= P10_IMG64 and l5 == (0, 0) and tuple(f5.shape) == (64, 64),
+          f"{card} | MelDbPlan 512/128 centre=False mel-64 frames step on (64, 512) + 512² blur "
+          f"(9x9 Gaussian sigma 2) + detect_edges_fft: vs numpy f64 mel dB {e_db:.3e} dB (limit "
+          f"{P10_DB:g}), blur {e_blur:.3e}, edges {e_edges:.3e} (limit {P10_IMG:g}); the f64 image "
+          f"{e64:.3e} (limit {P10_IMG64:g}); launches f32 {l5[0]} tier {l5[1]}")
+    with torch.no_grad():
+        t_step = time_ms(step)
+        t_feats = time_ms(feats)
+        t_blur = time_ms(lambda: blur(img))
+        # a kernel given as a host array is copied to the device, and the copy
+        # waits for the device's queue: the host's enqueue then shows
+        t_blur_host = time_ms(lambda: blur(img, ker_np))
+        t_edges = time_ms(lambda: tg.detect_edges_fft(img, **on))
+    block_audio = 64 * 128 / SR
+    print(f"[10 config 5 times] {card} | median/p90 of 100: step {t_step[0]:.4f}/{t_step[1]:.4f} "
+          f"ms ({block_audio / t_step[0] * 1e3:.1f} block audio-s/s), of which the mel-dB block "
+          f"{t_feats[0]:.4f}, convolve_fft {t_blur[0]:.4f} (the kernel a host array: "
+          f"{t_blur_host[0]:.4f}), detect_edges_fft {t_edges[0]:.4f} ms")
+
+    # ---- 10b. the two 2-D routes at 256², 512² and 1024² (use_matmul_path) ---
+    wins = {}
+    for side in (256, 512, 1024):
+        x = torch.from_numpy(np.random.default_rng(side).standard_normal(
+            (side, side)).astype(np.float32)).to(dev)
+        half = 1.0 - _lowpass_mask((side, side // 2 + 1), 0.1)
+        half_t = torch.tensor(half, dtype=torch.float32, device=dev)
+        full = s2.full_mask_from_half(half, side)
+        kspec = s2.full_spectrum_from_kernel(_pad_kernel_for_fft(ker_np.astype(np.float64),
+                                                                 (side, side)))
+        k_half = torch.fft.rfft2(torch.tensor(_pad_kernel_for_fft(ker_np, (side, side)),
+                                              device=dev))
+
+        def fft_filter():
+            return torch.fft.irfft2(torch.fft.rfft2(x) * half_t, s=(side, side))
+
+        def fft_conv():
+            return torch.fft.irfft2(torch.fft.rfft2(x) * k_half, s=(side, side))
+
+        with torch.no_grad():
+            e_f = err(s2.spectral_filter_matmul(x, full), fft_filter())
+            e_c = err(s2.spectral_conv_matmul(x, kspec), fft_conv())
+            t = {name: time_ms(fn)[0] for name, fn in (
+                ("fft filter", fft_filter), ("matmul filter", lambda: s2.spectral_filter_matmul(
+                    x, full)), ("fft conv", fft_conv),
+                ("matmul conv", lambda: s2.spectral_conv_matmul(x, kspec)))}
+        wins[side] = (t["matmul filter"] < t["fft filter"], t["matmul conv"] < t["fft conv"])
+        check(f"routes {side}", max(e_f, e_c) <= P10_IMG,
+              f"{card} | {side}²: high-pass(0.1) cuFFT {t['fft filter']:.4f} ms vs dense "
+              f"products {t['matmul filter']:.4f} ms; Gaussian conv cuFFT {t['fft conv']:.4f} "
+              f"vs products {t['matmul conv']:.4f} ms; routes agree to {max(e_f, e_c):.3e} "
+              f"(limit {P10_IMG:g}); products win: filter {wins[side][0]}, conv {wins[side][1]}")
+    crossover = max([side for side, w in wins.items() if all(w)], default=0)
+    print(f"[10 rule] {card} | largest side where the products beat cuFFT on both: "
+          f"{crossover}; ops/spectral2d.py MATMUL_MAX_DIM = {s2.MATMUL_MAX_DIM} "
+          f"({'agrees' if crossover == s2.MATMUL_MAX_DIM else 'DIFFERS from this run'})")
+
+    # ---- 10c. the 1-D family ------------------------------------------------
+    rng = np.random.default_rng(10)
+    sig = signal(rng, 1, 16000, SR)[0]
+    ir = (rng.standard_normal(513) * np.exp(-np.arange(513) / 100.0)).astype(np.float32)
+    direct = np.convolve(sig.astype(np.float64), ir.astype(np.float64))
+    sig_t, ir_t = torch.from_numpy(sig).to(dev), torch.from_numpy(ir).to(dev)
+    direct_t = torch.from_numpy(direct).to(dev)
+    sig64_t = sig_t.double()
+    with torch.no_grad():
+        y = tg.fft_convolve(sig_t, ir_t, **on)
+        e_conv = err(y.cpu().double(), direct) / np.abs(direct).max()
+        rec = tg.fft_deconvolve(direct_t, sig64_t, regularization=0.0, **on)
+        e_dec = err(rec.cpu(), ir.astype(np.float64))
+        t_conv = time_ms(lambda: tg.fft_convolve(sig_t, ir_t, **on))[0]
+        t_dec = time_ms(lambda: tg.fft_deconvolve(direct_t, sig64_t, **on))[0]
+    check("fft_convolve", e_conv <= P10_CONV and e_dec <= P10_EXACT64,
+          f"{card} | 1 s at 16 kHz * 513-tap IR: f32 vs np.convolve {e_conv:.3e} of the peak "
+          f"(limit {P10_CONV:g}), {t_conv:.4f} ms; f64 deconvolution recovers the IR to "
+          f"{e_dec:.3e} (limit {P10_EXACT64:g}), {t_dec:.4f} ms")
+    long_np = np.zeros(157 * 1024, dtype=np.float32)  # 10 s, zero-padded to whole blocks
+    long_np[:160000] = signal(rng, 1, 160000, SR)[0]
+    conv = tg.OverlapSaveConvolver(ir, 1024, dtype="float32", **on)
+    long_t = torch.from_numpy(long_np).to(dev)
+    blocks = long_t.reshape(-1, 1024)
+
+    def block_loop():
+        conv.reset()
+        return torch.cat([conv.process_block(b) for b in blocks])
+
+    with torch.no_grad():
+        ols = conv.process_signal(long_t)
+        loop = block_loop()
+        ols_ref = np.convolve(long_np.astype(np.float64), ir.astype(np.float64))[: long_np.size]
+        e_ols = err(ols.cpu().double(), ols_ref) / np.abs(ols_ref).max()
+        e_loop = err(ols, loop) / float(loop.abs().max())
+        t_ols = time_ms(lambda: conv.process_signal(long_t), reps=30)[0]
+        t_loop = time_ms(block_loop, reps=5, warmup=1)[0]
+    check("overlap-save", max(e_ols, e_loop) <= P10_CONV,
+          f"{card} | process_signal on 10 s at 16 kHz (157 blocks of 1024, fft_size "
+          f"{conv.fft_size}): vs np.convolve {e_ols:.3e}, vs a loop of process_block "
+          f"{e_loop:.3e} of the peak (limit {P10_CONV:g}); {t_ols:.4f} ms against the loop's "
+          f"{t_loop:.4f} ms")
+    # minimum phase against numpy's cepstral computation in f64
+    mp_ir = ir.astype(np.float64)[:64]
+    n = 1 << (64 * 8 - 1).bit_length()
+    h = np.fft.fft(mp_ir, n)
+    mag2 = np.abs(h) ** 2
+    cep = np.fft.ifft(0.5 * np.log(mag2 + mag2.max() * 1e-20))
+    w = np.zeros(n)
+    w[0], w[1:n // 2], w[n // 2] = 1.0, 2.0, 1.0
+    mp_ref = np.real(np.fft.ifft(np.exp(np.fft.fft(cep * w))))[:64]
+    mp_t = torch.from_numpy(mp_ir).to(dev)
+    with torch.no_grad():
+        e_mp = err(tg.minimum_phase(mp_t, **on).cpu(), mp_ref)
+        t_mp = time_ms(lambda: tg.minimum_phase(mp_t, **on))[0]
+    check("minimum_phase", e_mp <= P10_EXACT64,
+          f"{card} | 64 taps, f64, vs numpy {e_mp:.3e} (limit {P10_EXACT64:g}), {t_mp:.4f} ms")
+    big = np.random.default_rng(11).standard_normal((1024, 1024))
+    ref2 = np.fft.rfft2(big)
+    for dt, lim, lim_rt in (("float64", P10_FFT2_64, P10_RT64), ("float32", P10_FFT2_32,
+                                                                  P10_RT32)):
+        xin = torch.tensor(big, dtype=getattr(torch, dt), device=dev)
+        with torch.no_grad():
+            spec2 = tg.fft2d(xin, **on)
+            e2 = err(spec2.cpu().to(torch.complex128), ref2) / np.abs(ref2).max()
+            e_rt = err(tg.ifft2d(spec2, 1024, **on).cpu().double(), xin.cpu().double())
+            t2 = time_ms(lambda: tg.fft2d(xin, **on))[0]
+            t_rt = time_ms(lambda: tg.ifft2d(spec2, 1024, **on))[0]
+        check(f"fft2d {dt}", e2 <= lim and e_rt <= lim_rt,
+              f"{card} | 1024²: fft2d vs numpy {e2:.3e} of the peak (limit {lim:g}), ifft2d "
+              f"round trip {e_rt:.3e} (limit {lim_rt:g}); {t2:.4f} ms and {t_rt:.4f} ms")
+
+    # ---- 10d. config 8: the f64-grade tier ------------------------------------
+    x8 = np.sin(2 * np.pi * 440 * np.arange(16000) / 16000).astype(np.float32)
+    p8 = tg.SpectrogramPlan(tg.SpectrogramParams(tg.StftParams(256, 128), SR),
+                            tg.FreqScale.LINEAR, tg.AmpScale.POWER, dtype="float32",
+                            method="f32x2", **on)
+    fr8 = np.pad(x8.astype(np.float64), 128)
+    fr8 = np.lib.stride_tricks.sliding_window_view(fr8, 256)[::128][:126]
+    ref8 = (np.abs(np.fft.rfft(fr8 * hann(256), axis=-1)) ** 2).T
+    x8_t = torch.from_numpy(x8).to(dev)
+    (hi8, lo8), l8 = counted(lambda: p8.compute_raw_x2(x8_t))
+    e8 = float(np.abs(D.dd_to_f64((hi8, lo8)) - ref8).max() / ref8.max())
+    e8_hi = float(np.abs(p8.compute(x8_t).data.cpu().double().numpy() - ref8).max() / ref8.max())
+    fr8_t = frame_signal(x8_t, 256, 128, True)
+    with torch.no_grad():
+        e8_dd = float(np.abs(D.dd_to_f64(tuple(a.T for a in p8._bins_x2_dd(fr8_t))) - ref8).max()
+                      / ref8.max())
+        t8 = time_ms(lambda: p8.compute_raw_x2(x8_t))[0]
+        t8_dd = time_ms(lambda: p8._bins_x2_dd(fr8_t), reps=10, warmup=2)[0]
+    lo_ok = float(lo8.abs().max()) <= P10_LO * float(hi8.abs().max())
+    check("config 8 plan", e8 <= P10_PLAN and e8_dd <= P10_PLAN and lo_ok and l8 == (0, 0),
+          f"{card} | LINEAR POWER f32x2 256/128 on 1 s of 440 Hz: vs numpy f64 {e8:.3e} of the "
+          f"peak (limit {P10_PLAN:g}; hi alone {e8_hi:.3e}); the dd route {e8_dd:.3e}; |lo|/max|hi| "
+          f"{float(lo8.abs().max()) / float(hi8.abs().max()):.3e}; f64 route {t8:.4f} ms, dd "
+          f"route {t8_dd:.4f} ms ({t8_dd / t8:.1f}x); launches f32 {l8[0]} tier {l8[1]}")
+    rms = float(np.sqrt(np.mean(np.square(x8, dtype=np.float64))))
+    with torch.no_grad():
+        rt = D.dd_to_f64(tg.istft_x2(tg.stft_x2(x8_t, 512, 128, **on), 512, 128, **on))
+        t_stft = time_ms(lambda: tg.stft_x2(x8_t, 512, 128, **on))[0]
+        spec_x2 = tg.stft_x2(x8_t, 512, 128, **on)
+        t_istft = time_ms(lambda: tg.istft_x2(spec_x2, 512, 128, **on))[0]
+    e_rt8 = float(np.abs(rt - x8).max() / rms)
+    check("config 8 round trip", e_rt8 <= P10_X2,
+          f"{card} | stft_x2 -> istft_x2 at 512/128: {e_rt8:.3e} of the RMS (limit {P10_X2:g}); "
+          f"stft_x2 {t_stft:.4f} ms, istft_x2 {t_istft:.4f} ms")
+    img8_np = np.random.default_rng(8).standard_normal((128, 128)).astype(np.float32)
+    img8 = torch.from_numpy(img8_np).to(dev)
+    ref_img8 = np.fft.rfft2(img8_np.astype(np.float64))
+
+    def fft2d_x2_dd():
+        # JAX's dd route (x2.py): dd rows r2c, then dd columns c2c
+        re, im = D.dd_rfft((img8, torch.zeros_like(img8)), 128)
+        t_ = lambda p: (p[0].T, p[1].T)
+        re_t, im_t = D.dd_fft((t_(re), t_(im)), 128)
+        return t_(re_t), t_(im_t)
+
+    with torch.no_grad():
+        (reh, rel_), (imh, iml) = tg.fft2d_x2(img8, **on)
+        g8 = D.dd_to_f64((reh, rel_)) + 1j * D.dd_to_f64((imh, iml))
+        (dre, dim_) = fft2d_x2_dd()
+        g8_dd = D.dd_to_f64(dre) + 1j * D.dd_to_f64(dim_)
+        t_f2 = time_ms(lambda: tg.fft2d_x2(img8, **on))[0]
+        t_f2_dd = time_ms(fft2d_x2_dd, reps=10, warmup=2)[0]
+    e_f2 = float(np.abs(g8 - ref_img8).max() / np.abs(ref_img8).max())
+    e_f2_dd = float(np.abs(g8_dd - ref_img8).max() / np.abs(ref_img8).max())
+    check("config 8 fft2d_x2", e_f2 <= P10_X2 and e_f2_dd <= P10_X2,
+          f"{card} | 128² from default_rng(8): vs numpy f64 {e_f2:.3e} of the peak, the dd route "
+          f"{e_f2_dd:.3e} (limit {P10_X2:g}); f64 route {t_f2:.4f} ms, dd route {t_f2_dd:.4f} "
+          f"ms ({t_f2_dd / t_f2:.1f}x)")
+
+    # ---- 10e. the new methods at real sizes ------------------------------------
+    clip = signal(np.random.default_rng(12), 1, 160000, SR)[0]
+    clip_t = torch.from_numpy(clip).to(dev)
+    mel128 = tg.MelParams(128, 0.0, 8000.0, tg.MelNorm.SLANEY)
+    px2 = tg.SpectrogramPlan(tg.SpectrogramParams(tg.StftParams(1024, 256), SR),
+                             tg.FreqScale.MEL, tg.AmpScale.POWER, scale_params=mel128,
+                             dtype="float32", method="f32x2", **on)
+    (hi, lo), lx2 = counted(lambda: px2.compute_raw_x2(clip_t))
+    fr = np.lib.stride_tricks.sliding_window_view(np.pad(clip.astype(np.float64), 512),
+                                                  1024)[::256][:626]
+    ref_mel = ((np.abs(np.fft.rfft(fr * hann(1024), axis=-1)) ** 2)
+               @ mel_filterbank(SR, 1024, mel128).T).T
+    got_mel = D.dd_to_f64((hi, lo))
+    e_mel = float((np.abs(got_mel - ref_mel) / (np.abs(ref_mel) + 1e-300)).max())
+    frc = frame_signal(clip_t, 1024, 256, True)
+    with torch.no_grad():
+        dd_mel = D.dd_to_f64(tuple(a.T for a in px2._bins_x2_dd(frc)))
+        e_mel_dd = float((np.abs(dd_mel - ref_mel) / (np.abs(ref_mel) + 1e-300)).max())
+        t_x2 = time_ms(lambda: px2.compute_raw_x2(clip_t))[0]
+        t_x2_dd = time_ms(lambda: px2._bins_x2_dd(frc), reps=5, warmup=1)[0]
+    check("f32x2 mel-128", e_mel <= P10_PLAN and e_mel_dd <= P10_PLAN and lx2 == (0, 0)
+          and got_mel.shape == (128, 626),
+          f"{card} | MEL POWER f32x2 1024/256 mel-128 on 10 s: vs numpy f64 {e_mel:.3e} per "
+          f"element, the dd route {e_mel_dd:.3e} (limit {P10_PLAN:g}); f64 route {t_x2:.4f} ms, "
+          f"dd route {t_x2_dd:.4f} ms ({t_x2_dd / t_x2:.1f}x)")
+    xb = torch.from_numpy(signal(np.random.default_rng(13), batch, 160000, SR)).to(dev)
+    params = tg.SpectrogramParams(tg.StftParams(1024, 256), SR)
+    db = tg.LogParams(-80.0)
+    plans = {m: tg.MelDbPlan(params, mel128, db, dtype="float32", method=m, **on)
+             for m in ("factored", "matmul", "auto", "fft")}
+    out_fac, l_fac = counted(lambda: plans["factored"].compute_batch(xb))
+    _, l_auto = counted(lambda: plans["auto"].compute_batch(xb))
+    with torch.no_grad():
+        e_fac = err(out_fac, plans["matmul"].compute_batch(xb))
+        t = {m: time_ms(lambda p=p: p.compute_batch(xb)) for m, p in plans.items()}
+    check("factored flagship", e_fac <= P10_FACTORED and l_fac == (0, 0) and l_auto == (1, 0),
+          f"{card} | MelDbPlan ({batch}, 160000) 1024/256 mel-128 dB, method='factored' vs "
+          f"'matmul' "
+          f"{e_fac:.3e} dB (limit {P10_FACTORED:g}); launches factored {l_fac}, auto {l_auto}; "
+          f"median/p90 of 100: factored {t['factored'][0]:.4f}/{t['factored'][1]:.4f} ms, auto "
+          f"(the f32 kernel) {t['auto'][0]:.4f}, fft {t['fft'][0]:.4f}, matmul "
+          f"{t['matmul'][0]:.4f} ms")
+    print(f"[10 phase] {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs one GPU")
@@ -1651,6 +1995,7 @@ def main() -> None:
     surface_phase(tg, ff, dev, card, xb, tier_bound)
     del xb
     config4_phase(tg, ff, dev, card)
+    fft_image_phase(tg, ff, dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "fused_features",

@@ -21,6 +21,18 @@ dense, banded or octave-stacked multirate: ``ops/cqt.py``, ``cqt.py``), the
 MDCT (``mdct.py``) and the ERB gammatone bank (``erb.py``); ``audio`` is the
 audio namespace module.
 
+The 1-D/2-D FFT and image family: ``fft_convolve``/``fft_deconvolve`` and
+the streaming ``OverlapSaveConvolver`` (``convolution.py``),
+``minimum_phase`` (``min_phase.py``), ``fft2d`` and its helpers
+(``fft2d.py``), the FFT image filters (``image_ops.py``, with the dense
+DFT-product route of ``ops/spectral2d.py``); ``fft`` and ``image`` are the
+namespace modules (``fft`` is callable, so ``fft(x, n)`` works whether the
+name is the function or the module). The f64-grade tier: ``method="f32x2"``
+plans and ``stft_x2``/``istft_x2``/``fft2d_x2``/``ifft2d_x2`` (``x2.py``),
+computed in float64 on the card and split into (hi, lo) float32 pairs,
+with the JAX package's double-double arithmetic in ``ops/dd.py``;
+``method="factored"`` runs the two-stage rFFT of ``ops/fft_factored.py``.
+
 Serving: ``FeaturePipeline`` reads WAV files (or decoded arrays) through
 the native loader (``runtime/``, a ctypes binding to ``native/sgtpu.cpp``),
 ships them as float32, int16 or μ-law and returns per-batch features with
@@ -124,7 +136,34 @@ from .chroma import (
 from .cqt import CqtResult, cqt
 from .erb import ErbFilterbank, gammatone_center_frequencies, gammatone_iir_spectrogram
 from .mdct import MdctParams, mdct, imdct, compute_mdct, compute_imdct
+from .convolution import fft_convolve, fft_deconvolve, OverlapSaveConvolver
+from .min_phase import minimum_phase, minimum_phase_with
 from .reconstruct import griffin_lim, mel_to_linear, invert_mel_db, mel_filterbank_pinv
+from .fft2d import (
+    fft2d,  # rebinds the package attribute from the module to the function, as in JAX
+    fft2d as compute_fft2d,
+    ifft2d,
+    power_spectrum_2d,
+    magnitude_spectrum_2d,
+    fftshift,
+    ifftshift,
+    fftshift_1d,
+    ifftshift_1d,
+    fftfreq,
+    rfftfreq,
+    Fft2dPlanner,
+)
+from . import image_ops
+from .image_ops import (
+    convolve_fft,
+    gaussian_kernel_2d,
+    lowpass_filter,
+    highpass_filter,
+    bandpass_filter,
+    detect_edges_fft,
+    sharpen_fft,
+)
+from .x2 import stft_x2, istft_x2, fft2d_x2, ifft2d_x2
 from .convert import plan_constants_from_numpy
 from .featureset import FeatureSet
 from .serving import FeatureBatch, FeatureSetBatch, FeaturePipeline
@@ -233,6 +272,35 @@ __all__ = [
     "mel_to_linear",
     "invert_mel_db",
     "mel_filterbank_pinv",
+    "fft_convolve",
+    "fft_deconvolve",
+    "OverlapSaveConvolver",
+    "minimum_phase",
+    "minimum_phase_with",
+    "fft2d",
+    "compute_fft2d",
+    "ifft2d",
+    "power_spectrum_2d",
+    "magnitude_spectrum_2d",
+    "fftshift",
+    "ifftshift",
+    "fftshift_1d",
+    "ifftshift_1d",
+    "fftfreq",
+    "rfftfreq",
+    "Fft2dPlanner",
+    "image_ops",
+    "convolve_fft",
+    "gaussian_kernel_2d",
+    "lowpass_filter",
+    "highpass_filter",
+    "bandpass_filter",
+    "detect_edges_fft",
+    "sharpen_fft",
+    "stft_x2",
+    "istft_x2",
+    "fft2d_x2",
+    "ifft2d_x2",
     "plan_constants_from_numpy",
     "FeatureSet",
     "FeaturePipeline",

@@ -5,7 +5,7 @@ Counterpart of ``spectrograms_tpu.cache``. The port's plan cache is its
 ``functools.lru_cache``'d host builders: the one-shots' plans, filterbanks,
 DFT matrices, the iSTFT's window-energy normalizer, the MFCC DCT and the
 decimation filters, the CQT kernels and multirate groups, the gammatone IIR
-bank and the MDCT bases. ``fft_plan_cache_info`` reports each one's counters
+bank, the MDCT bases and the image filters' masks (host and device copies). ``fft_plan_cache_info`` reports each one's counters
 and, when a card is present, the CUDA memory PyTorch has allocated under the
 label ``device.cuda_memory_allocated`` (bytes; the JAX package reports its
 live arrays there). ``clear_fft_plan_cache`` empties every host cache.
@@ -32,6 +32,7 @@ _CACHE_MODULES = {
     "ola_norm": "ops.stft",
     "erb": "erb",
     "mfcc_dct": "mfcc",
+    "image_kernels": "image_ops",
     "mdct": "mdct",
     "decimate": "ops.decimate",
 }

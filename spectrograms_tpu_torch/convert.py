@@ -17,6 +17,14 @@ A CQT plan's constants are its kernels: the fused ``[re | −im]`` matrix
 (``_cqt_ri``), its bands (``_cqt_bands``) when banding is on, and its
 multirate groups (``_cqt_multirate``, ``(d, k_ri, e0, flen, jp)``) when the
 plan runs the octave stack; a CQT plan takes no window or mapping.
+
+Two objects outside the plans carry state of their own: a
+``FactoredRfft``'s constants (the 128-point DFT matrices ``_c``/``_s``, the
+twiddles ``_tw_re``/``_tw_im``, the radix-2 butterflies ``_bfs`` and the
+window) and an ``OverlapSaveConvolver``'s impulse-response spectrum
+``_h_spec`` and carried history ``_history``; ``factored_constants_from_numpy``
+and ``convolver_state_from_numpy`` install a JAX object's arrays into the
+port's.
 """
 
 from __future__ import annotations
@@ -26,11 +34,17 @@ from typing import Optional
 import numpy as np
 
 from .chroma import ChromaPlan
+from .convolution import OverlapSaveConvolver
 from .errors import DimensionMismatchError, InvalidInputError
 from .mfcc import MfccPlan
+from .ops.fft_factored import FactoredRfft
 from .pipeline import FreqScale, SpectrogramPlan
 
-__all__ = ["plan_constants_from_numpy"]
+__all__ = [
+    "plan_constants_from_numpy",
+    "factored_constants_from_numpy",
+    "convolver_state_from_numpy",
+]
 
 
 def _f64(name, array, shape):
@@ -122,3 +136,38 @@ def _install_cqt(plan, window, mapping, dct_basis, cqt_ri, cqt_bands, cqt_groups
                     for (d, k, e0, flen, jp), mine in zip(cqt_groups, plan._cqt_multirate)]
     plan._install_cqt_constants(ri64, bands64, groups64)
     return plan
+
+
+def factored_constants_from_numpy(fk, c, s, tw_re, tw_im, butterflies, window=None):
+    """Install a factored rFFT's constants into ``fk`` (a port
+    ``FactoredRfft``): ``c``/``s`` (128, 128), ``tw_re``/``tw_im`` (r, 128),
+    ``butterflies`` a sequence of (re, im) (L/2, 1) pairs, one per radix-2
+    level, and the (n_fft,) window or None. Returns ``fk``."""
+    if not isinstance(fk, FactoredRfft):
+        raise InvalidInputError(f"not a port FactoredRfft: {type(fk).__name__}")
+    dt, dev = fk._c.dtype, fk._c.device
+    arrays = [_f64("c", c, (128, 128)), _f64("s", s, (128, 128)),
+              _f64("tw_re", tw_re, (fk.r, 128)), _f64("tw_im", tw_im, (fk.r, 128))]
+    if len(butterflies) != len(fk._bfs):
+        raise DimensionMismatchError(len(fk._bfs), len(butterflies))
+    bfs = [(_f64("butterflies", re, tuple(mine[0].shape)),
+            _f64("butterflies", im, tuple(mine[1].shape)))
+           for (re, im), mine in zip(butterflies, fk._bfs)]
+    w = None if window is None else _f64("window", window, (fk.n_fft,))
+    fk._install(*arrays, bfs, w, dt, dev)
+    return fk
+
+
+def convolver_state_from_numpy(conv, h_spec, history):
+    """Install an overlap-save convolver's impulse-response spectrum
+    (fft_size//2+1,) complex and its carried history (fft_size −
+    block_size,) into ``conv`` (a port ``OverlapSaveConvolver``). Returns
+    ``conv``."""
+    if not isinstance(conv, OverlapSaveConvolver):
+        raise InvalidInputError(f"not a port OverlapSaveConvolver: {type(conv).__name__}")
+    spec = np.asarray(h_spec, dtype=np.complex128)
+    if spec.shape != (conv.fft_size // 2 + 1,):
+        raise DimensionMismatchError((conv.fft_size // 2 + 1,), spec.shape)
+    hist = _f64("history", history, (conv.fft_size - conv.block_size,))
+    conv._install(spec, hist)
+    return conv

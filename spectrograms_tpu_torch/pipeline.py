@@ -3,7 +3,7 @@
 Counterpart of ``spectrograms_tpu.pipeline`` for LINEAR / MEL / LOG_HZ / ERB
 / CQT × POWER / MAGNITUDE / DECIBELS. A plan builds its constants once (window,
 window-folded DFT matrices, filterbank, frequency axis) on its device and
-runs one of three methods:
+runs one of these methods:
 
 - ``matmul``: the windowed real DFT as a matmul over hop slices of the
   signal (``framed_matmul``) → |·|² → filterbank matmul → amplitude;
@@ -12,11 +12,22 @@ runs one of three methods:
   gradients flow through the plain path (``ops.gradients``). The names are
   the JAX package's. ``precision=HIGH`` (the default) runs the f32 kernel,
   ``precision=DEFAULT`` the 1-pass bf16 tier and ``pallas:x2`` the 2-pass
-  tier on tensor cores, as the JAX package's tiers do on the MXU.
+  tier on tensor cores, as the JAX package's tiers do on the MXU;
+- ``factored``: frames → the two-stage Cooley-Tukey rFFT of
+  ``ops.fft_factored`` (a 128-point DFT product, then radix 2) → |·|² →
+  filterbank → amplitude (n_fft = 128·2^k in 256..4096);
+- ``f32x2``: the f64-grade tier of a float32 plan. ``compute_raw_x2``
+  returns each value as an (hi, lo) float32 pair; the JAX package computes
+  it in double-double on f32 hardware, the port in native float64 on the
+  device (window, rFFT, |·|², filterbank, amplitude), split as hi =
+  the correctly rounded f32, lo = the f32 of the remainder. ``compute``
+  returns hi. ``_bins_x2_dd`` keeps JAX's op-for-op dd arithmetic
+  (``ops/dd.py``) as the plain version.
 
 ``auto`` mirrors the JAX rule: the fused kernel for MEL/LOG_HZ/ERB float32
 plans on a CUDA device (where the JAX package requires a TPU), unless
 ``precision=HIGHEST``; ``fft`` for float64 or n_fft > 4096; else ``matmul``.
+It never picks ``factored`` or ``f32x2``.
 
 The JAX package's ``vmap`` becomes an explicit batch axis: ``compute_batch``
 runs the same function on a (B, n) tensor. Entry points compute on CUDA
@@ -30,13 +41,15 @@ CQT plans (``FreqScale.CQT``) correlate unwindowed frames with the
 ``[re | −im]`` kernels of ``ops/cqt.py`` in one framed matmul, or, when the
 truncation policy elects it, run the octave-stacked multirate CQT
 (``cqt.multirate_ri_blocks``) on a lazy decimation cascade; ``method`` does
-not change their arithmetic, and ``pallas`` refuses them, as in JAX.
+not change their arithmetic, and ``pallas`` and ``f32x2`` refuse them, as in
+JAX.
 
 ``MelParams``/``LogHzParams(multirate=True)`` run the band-limited multirate
 route: an inner plan at n_fft/2^d, hop/2^d and sr/2^d (the same bin and
 frame grids) computes on an anti-aliased 2^d-decimated copy of the signal
 (``ops.decimate``), scaled by 2^d, and on CUDA launches the same kernels at
-that geometry. ``compute_frame`` is the streaming single-frame path.
+that geometry; an ``f32x2`` plan stays at the full rate, as in JAX.
+``compute_frame`` is the streaming single-frame path.
 """
 
 from __future__ import annotations
@@ -74,7 +87,9 @@ from .params import (
 from .windows import WindowType, make_window
 from .ops import filterbanks as fb
 from .ops.decimate import band_limited_decimation_depth, decimate_pow2_framed
+from .ops import dd as dd_ops
 from .ops.dft import MATMUL_MAX_N_FFT, rdft_matrices
+from .ops.fft_factored import FactoredRfft, supports_factored
 from .ops import cqt as cqt_ops
 from .ops.framing import frame_count, frame_signal, framed_matmul, tail_framed_matmul
 from .ops import stft as stft_ops
@@ -242,16 +257,24 @@ def kernel_kwargs(method: str, precision: Precision) -> dict:
 
 def _resolve_method(method: str, n_fft: int, hop: int, dtype, freq_scale,
                     precision, device: torch.device) -> str:
-    if freq_scale == FreqScale.CQT and method == "f32x2":
-        raise InvalidInputError("method='f32x2' does not cover CQT plans")
     if method.startswith("pallas:"):
         parse_pallas_method(method)  # validates the options eagerly
-    elif method in ("factored", "f32x2"):
-        raise InvalidInputError(f"method={method!r} is not yet ported")
-    elif method not in ("auto", "matmul", "fft", "pallas"):
+    elif method not in ("auto", "matmul", "factored", "fft", "pallas", "f32x2"):
         raise InvalidInputError(
-            f"unknown method {method!r}; expected auto/matmul/fft/pallas[:variant]"
+            f"unknown method {method!r}; expected "
+            "auto/matmul/factored/fft/pallas[:variant]/f32x2"
         )
+    if method == "f32x2":
+        if dtype != torch.float32:
+            raise InvalidInputError("method='f32x2' is the f64-grade tier of a float32 "
+                                    "plan; use dtype='float32' (a float64 plan already "
+                                    "computes in f64)")
+        if n_fft & (n_fft - 1):
+            raise InvalidInputError(
+                f"method='f32x2' requires a power-of-two n_fft, got {n_fft}"
+            )
+        if freq_scale == FreqScale.CQT:
+            raise InvalidInputError("method='f32x2' does not cover CQT plans")
     if method == "auto":
         if dtype == torch.float64 or n_fft > MATMUL_MAX_N_FFT:
             return "fft"
@@ -265,6 +288,10 @@ def _resolve_method(method: str, n_fft: int, hop: int, dtype, freq_scale,
         ):
             return "pallas"
         return "matmul"
+    if method == "factored" and not supports_factored(n_fft):
+        raise InvalidInputError(
+            f"method='factored' requires n_fft = 128 * 2^k in 256..4096, got {n_fft}"
+        )
     return method
 
 
@@ -362,7 +389,8 @@ class SpectrogramPlan:
         window64 = make_window(stft_p.window, n_fft, np.float64)
         self._multirate_inner = None
         self._install_constants(window64, mapping)
-        if freq_scale in (FreqScale.MEL, FreqScale.LOG_HZ) and scale_params.multirate:
+        if (freq_scale in (FreqScale.MEL, FreqScale.LOG_HZ) and scale_params.multirate
+                and self.method != "f32x2"):  # the f64-grade tier stays at the full rate
             self._init_multirate(method, window64)
 
     def _init_cqt(self, scale_params, centre: bool) -> np.ndarray:
@@ -491,6 +519,12 @@ class SpectrogramPlan:
             c, s = rdft_matrices(self._n_fft, window64, dt, dev)
             # One (n_fft, 2·n_bins) [C | S] constant: one product gives re and im.
             self._dft_cs = torch.cat([c, s], dim=1)
+        if self.method == "factored":
+            self._factored = FactoredRfft(self._n_fft, window64, dt, dev)
+        if self.method == "f32x2":
+            self._window64 = torch.tensor(window64, dtype=torch.float64, device=dev)
+            self._mapping64_t = (None if mapping64 is None else
+                                 torch.tensor(mapping64.T, dtype=torch.float64, device=dev))
         if self.method.startswith("pallas"):
             self._kernel_run = fused_factored_features(
                 self._n_fft,
@@ -527,10 +561,59 @@ class SpectrogramPlan:
             else:
                 mapped = self._cqt_power(frames @ self._cqt_ri)
             return _apply_amp(mapped, self.amp_scale, self._floor_db)
+        if self.method == "f32x2":
+            return self._bins_x2(frames)[0]  # hi: the correctly rounded f32
         if self.method == "fft":
             spec = torch.fft.rfft(frames * self._window, dim=-1)
             return self._bins(spec.real, spec.imag)
+        if self.method == "factored":
+            return self._bins(*self._factored(frames))
         return self._bins(*(frames @ self._dft_cs).chunk(2, dim=-1))
+
+    def _bins_x2(self, frames):
+        """The f32x2 tier: (..., n_frames, n_fft) f32 frames → the (hi, lo)
+        pair of (..., n_frames, n_out), computed in float64 on the device
+        and split (``ops.dd.dd_from_f64``). Decibels are 10·log10 in f64
+        too, so lo carries their f64 remainder (JAX's dd tier returns lo = 0
+        and an f32 log with a first-order correction)."""
+        spec = torch.fft.rfft(frames.double() * self._window64, dim=-1)
+        power = spec.real ** 2 + spec.imag ** 2
+        mapped = power if self._mapping64_t is None else power @ self._mapping64_t
+        return dd_ops.dd_from_f64(_apply_amp(mapped, self.amp_scale, self._floor_db))
+
+    def _bins_x2_dd(self, frames):
+        """The plain version of :meth:`_bins_x2`: the JAX package's
+        double-double arithmetic op for op (``ops/dd.py``), from f32 ops
+        alone, its dB included (an f32 log10 with a first-order correction,
+        lo = 0)."""
+        D = dd_ops
+        fr = (frames.float(), torch.zeros(frames.shape, dtype=torch.float32,
+                                          device=frames.device))
+        xw = D.dd_mul(fr, D.dd_from_f64(self._window64))
+        re, im = D.dd_rfft(xw, self._n_fft)
+        p = D.dd_add(D.dd_mul(re, re), D.dd_mul(im, im))
+        if self._mapping64_t is not None:
+            p = D.dd_matvec(D.dd_from_f64(self._mapping64_t.T), p)
+        if self.amp_scale == AmpScale.MAGNITUDE:
+            p = D.dd_sqrt(p)
+        elif self.amp_scale == AmpScale.DECIBELS:
+            eps = float(np.float32(10.0 ** (self._floor_db / 10.0)))
+            hi = torch.clamp_min(p[0], eps)
+            corr = torch.where(p[0] > eps, p[1] / (hi * float(np.float32(np.log(10.0)))), 0.0)
+            db = 10.0 * (torch.log10(hi) + corr)
+            p = (db, torch.zeros_like(db))
+        return p
+
+    def compute_raw_x2(self, samples):
+        """The f64-grade result as an (hi, lo) float32 pair, each
+        (n_bins, n_frames); only on ``method='f32x2'`` plans. ``hi`` alone
+        is :meth:`compute_raw`; ``ops.dd.dd_to_f64`` recombines the pair."""
+        if self.method != "f32x2":
+            raise InvalidInputError("compute_raw_x2 requires a method='f32x2' plan")
+        frames = frame_signal(self._validate_signal(samples), self._n_fft, self._hop,
+                              self._centre)
+        hi, lo = self._bins_x2(frames)
+        return hi.T, lo.T
 
     def _forward_frames(self, frames):
         """(..., n_frames, n_fft) raw frames → (..., n_frames, n_out): the

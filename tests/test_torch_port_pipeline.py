@@ -180,10 +180,12 @@ def test_plan_surface_matches_jax():
 def test_parts_not_yet_ported_raise(build):
     """Each part of the JAX surface that the port lacks raises "not yet
     ported". The parts ported since (CQT plans, the multirate plans,
-    ``compute_frame`` and ``StftPlan``) build and compute instead: finite
-    values of the expected shape, here; their parity tests are
-    ``tests/test_torch_port_cqt.py``, ``test_torch_port_multirate.py``,
-    ``test_torch_port_streaming.py`` and ``test_torch_port_stft.py``."""
+    ``compute_frame``, ``StftPlan`` and the ``factored`` and ``f32x2``
+    methods) build and compute instead: finite values of the expected
+    shape, here; their parity tests are ``tests/test_torch_port_cqt.py``,
+    ``test_torch_port_multirate.py``, ``test_torch_port_streaming.py``,
+    ``test_torch_port_stft.py``, ``test_torch_port_factored.py`` and
+    ``test_torch_port_f32x2.py``."""
     params = tg.SpectrogramParams(tg.StftParams(1024, 256), SR)
     x = noise(16000, seed=17, dtype=np.float32)
     ported = {
@@ -207,6 +209,9 @@ def test_parts_not_yet_ported_raise(build):
             chroma_params=tg.ChromaParams().with_multirate()).compute(x).data,
         "compute_frame": lambda: plan(tg, "mel", "db").compute_frame(x, 0)[:, None],
         "stft_plan": lambda: tg.StftPlan(params, device="cpu").compute(x).norm(),
+        "factored": lambda: plan(tg, "mel", "db", method="factored").compute_raw(x),
+        "f32x2": lambda: plan(tg, "mel", "db", method="f32x2",
+                              dtype="float32").compute_raw_x2(x)[1],
     }
     if build in ported:
         out = ported[build]()
