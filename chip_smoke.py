@@ -88,7 +88,24 @@ beside this run's:
    in f64, the f64 route timed beside the op-for-op double-double route; an
    ``f32x2`` mel-128 plan on 10 s; ``method="factored"`` on the flagship batch
    against ``matmul``, timed beside ``auto`` (the f32 kernel) and ``fft``;
-11. the ``kernels`` JSON line, the card line, and the result line
+11. autotune, serving options, parallelism, binaural, sources and serde
+   (``tuning_parallel_phase``): ``autotune_plan`` with
+   ``kernel_variants=True`` on the flagship MFCC batch at ``HIGH`` and
+   ``DEFAULT`` and on the chroma batch at ``HIGH`` (each candidate's slope
+   reading beside its CUDA-event time, the winner against ``matmul`` and
+   beside what ``auto`` resolves to), a second call answered by the
+   wisdom with no launch, ``save_wisdom``/``load_wisdom``; config 7 (phase
+   7's 256 WAVs) served with ``autotune=True``, over a one-entry mesh (bit-equal to
+   ``mesh=None``) and a 4-entry mesh on the one card; ``shard_batch`` and
+   ``data_parallel_pipeline`` on the flagship batch over one and four
+   entries, and a 30-row batch with its mask; ``sequence_parallel_spectrogram``
+   on 10 min of noise over one and four entries against ``compute``; the
+   four binaural ``_batch`` functions on 32 × 10 s stereo at f32 and f64
+   against the port's CPU f64 run, the one-shots and their histograms;
+   the sources on 10 s against their CPU f64 runs (the gammatone bank
+   timed once); NPZ ``save``/``load`` of CUDA results. Each f32-kernel
+   launch on these paths is counted;
+12. the ``kernels`` JSON line, the card line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero, printing no result, when CUDA is unavailable. Imports
@@ -256,9 +273,10 @@ def f32_bound(x_numel, y_numel, frames, n_fft, mapping, dct, pre):
     return max(b_ms, o_ms), b_ms, o_ms
 
 
-def serving_phase(tg, ff, dev, card, tier_bound) -> None:
+def serving_phase(tg, ff, dev, card, tier_bound) -> dict:
     """Phase 7: the serving path at the sizes users run (see the module
-    docstring). Each check prints its reading before a failure ends the run."""
+    docstring). Each check prints its reading before a failure ends the run.
+    Returns the end-to-end audio-s/s of each transport."""
     from spectrograms_tpu_torch.mfcc import _dct_lifter_matrix
     from spectrograms_tpu_torch.ops.filterbanks import chroma_filterbank, mel_filterbank
     from spectrograms_tpu_torch.runtime import (AudioBatchLoader, StreamingSpectrogram,
@@ -536,6 +554,7 @@ def serving_phase(tg, ff, dev, card, tier_bound) -> None:
                                                  for k, v in times.items())
               + f" | bound f32 {b32[0] * 1e3:.2f} us ({'bytes' if b32[1] >= b32[2] else 'operations'}),"
               f" tier {b16[0] * 1e3:.2f} us ({'bytes' if b16[1] >= b16[2] else 'operations'})")
+    return rates
 
 
 # Phase 8's limits. The mel-dB kernel route against method="matmul" is held
@@ -1342,6 +1361,377 @@ def fft_image_phase(tg, ff, dev, card, batch: int = 32) -> None:
     print(f"[10 phase] {time.perf_counter() - t_phase:.1f} s")
 
 
+# Phase 11's limits. The autotune winners against method="matmul": f32
+# routes at phase 3's mfcc_tol (1e-4 of max|ref|) for MFCC and phase 4's
+# 1e-4 of max|ref| for chroma; a DEFAULT-tier winner against HIGHEST matmul
+# at MFCC_TIER_LIMITS. Served batches equal compute_batch of the same rows
+# (exact, as phase 7), the one-entry mesh bit-equal to mesh=None, the
+# 4-entry mesh on one card within phase 3's db_tol (1e-3 dB). Data
+# parallelism against compute_batch at mfcc_tol; sequence parallelism
+# against plan.compute at db_tol. Binaural batches on the card: f64 at
+# 1e-9 against the port's CPU f64 run (phases modulo 2π: the wrap rule of
+# tests/test_torch_port_binaural.py); f32 against the same f64 run at 10x
+# that test's f32 bars (1e-2 dB ILD, 1e-3 ILR, 1e-2 rad for IPD and ITD's
+# phase), on cells where both channels exceed 1e-3 of the item's peak
+# magnitude, since one f32 FFT over 10 s batches is held here against f64;
+# f64 histograms: the same valid count per frame and at most 1e-3 of the
+# values in another bin. Sources on the card (f32) against the same source
+# on the CPU in f64: the mel-dB plan at 1e-2 dB, the others at 1e-3 of
+# max|ref|. Serde: exact after loading.
+P11_DB, P11_MFCC_REL, P11_CHROMA_REL = 1e-3, 1e-4, 1e-4
+P11_BIN64, P11_ILD32, P11_ILR32, P11_PHASE32 = 1e-9, 1e-2, 1e-3, 1e-2
+P11_HIST_MOVED, P11_SRC_DB, P11_SRC_REL = 1e-3, 1e-2, 1e-3
+
+
+def tuning_parallel_phase(tg, ff, dev, card, phase7_rates, batch: int = 32,
+                          seconds: float = 10.0, n_files: int = 256,
+                          seq_samples: int = 9_600_000) -> None:
+    """Phase 11: autotune and wisdom, config 7 served with autotune=True and
+    over a mesh, data and sequence parallelism, binaural, sources and serde
+    (see the module docstring)."""
+    # the package binds ``autotune`` to the function: the module by its name
+    at = sys.modules["spectrograms_tpu_torch.autotune"]
+    from spectrograms_tpu_torch import binaural as tb
+    from spectrograms_tpu_torch import serde
+    from spectrograms_tpu_torch.parallel import (create_device_mesh, data_parallel_pipeline,
+                                                 sequence_parallel_spectrogram, shard_batch)
+    from spectrograms_tpu_torch.runtime import read_wav, write_wav
+
+    counters = (ff.fused_factored_features, ff.fused_tier_features)
+    n = int(SR * seconds)
+
+    def check(label, ok, reading):
+        print(f"[11 {label}] {reading} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"tuning and parallel phase: {label}")
+
+    def counted(fn):
+        for c in counters:
+            c.launches = 0
+        with torch.no_grad():
+            out = fn()
+        torch.cuda.synchronize()
+        return out, tuple(c.launches for c in counters)
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / float(b.abs().max())
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 11)
+    mel_p = tg.MelParams(128, 0.0, 8000.0, tg.MelNorm.SLANEY)
+    mkw = dict(mel_params=mel_p, mfcc_params=tg.MfccParams(40, include_c0=True, lifter=22),
+               log_params=tg.LogParams(-80.0), dtype="float32")
+    stft = tg.StftParams(1024, 256)
+    xb = torch.from_numpy(signal(rng, batch, n, SR)).to(dev)
+
+    # ---- 11a. autotune on the flagship and chroma batches ------------------
+    sr44 = 44100.0
+    xc = torch.from_numpy(rng.standard_normal((2 * batch, int(sr44 * seconds / 2)))
+                          .astype(np.float32)).to(dev)
+    highest = dict(method="matmul", precision=tg.Precision.HIGHEST)
+    cases = [
+        ("flagship MFCC HIGH", tg.MfccPlan(stft, SR, **mkw), xb,
+         tg.MfccPlan(stft, SR, **mkw, method="matmul"), "mfcc"),
+        ("flagship MFCC DEFAULT", tg.MfccPlan(stft, SR, **mkw, precision=tg.Precision.DEFAULT),
+         xb, tg.MfccPlan(stft, SR, **mkw, **highest), "mfcc"),
+        ("chroma HIGH", tg.ChromaPlan(tg.StftParams(4096, 1024), sr44, dtype="float32"), xc,
+         tg.ChromaPlan(tg.StftParams(4096, 1024), sr44, dtype="float32", method="matmul"),
+         "chroma"),
+    ]
+    tg.clear_wisdom()
+    for label, plan, x, ref_plan, kind in cases:
+        t0 = time.perf_counter()
+        res, tune_launches = counted(lambda: tg.autotune_plan(plan, x, kernel_variants=True))
+        tune_s = time.perf_counter() - t0
+        with torch.no_grad():
+            ref = ref_plan.compute_batch(x)
+            out = res.plan.compute_batch(x)
+            events = {m: time_ms(lambda p=at._rebuild_with_method(plan, m): p.compute_batch(x),
+                                 reps=30) for m in res.timings_ms}
+        tier_winner = (res.winner.startswith("pallas")
+                       and at._spectrogram_plan(plan).precision == tg.Precision.DEFAULT)
+        if tier_winner:
+            err, lim, ok = tier_err(out, ref, "mfcc", "bf16")
+            what = f"vs HIGHEST matmul max|err| {err:.3e} (tier limit {lim:.3e})"
+        else:
+            err = float((out - ref).abs().max())
+            lim = (P11_MFCC_REL if kind == "mfcc" else P11_CHROMA_REL) * float(ref.abs().max())
+            ok = err <= lim
+            what = f"vs matmul max|err| {err:.3e} (limit {lim:.3e})"
+        expect = ["fft", "matmul", "pallas", "pallas:dif"] + (
+            [] if at._spectrogram_plan(plan).precision == tg.Precision.DEFAULT
+            else ["pallas:stack", "pallas:dif+stack", "pallas:gauss"])
+        lines = "; ".join(
+            f"{m} slope {res.timings_ms[m]:.4f} ms, event {events[m][0]:.4f}/{events[m][1]:.4f} "
+            f"ms (gap {res.timings_ms[m] - events[m][0]:+.4f})" for m in res.timings_ms)
+        check(f"autotune {label}", ok and list(res.timings_ms) == expect
+              and tune_launches[0] + tune_launches[1] > 0 and bool(torch.isfinite(out).all()),
+              f"{card} | {tuple(x.shape)} kernel_variants=True, tuned in {tune_s:.2f} s, "
+              f"launches during tuning f32/tier {tune_launches[0]}/{tune_launches[1]} | {lines} "
+              f"| winner {res.winner!r}, auto resolves to {plan.method!r} "
+              f"({'agrees' if res.winner == plan.method else 'DIFFERS'}); winner {what}")
+        hit, hit_launches = counted(lambda: tg.autotune_plan(plan, x, kernel_variants=True))
+        check(f"wisdom hit {label}", hit.from_cache and hit.timings_ms == {}
+              and hit.winner == res.winner and hit_launches == (0, 0),
+              f"second autotune_plan: from_cache {hit.from_cache}, timings_ms "
+              f"{hit.timings_ms}, winner {hit.winner!r}, launches {hit_launches} (want (0, 0))")
+        del out, ref
+    with tempfile.TemporaryDirectory() as tmp:
+        saved = tg.wisdom()
+        tg.save_wisdom(Path(tmp) / "wisdom.json")
+        tg.clear_wisdom()
+        loaded = tg.load_wisdom(Path(tmp) / "wisdom.json")
+        again, again_launches = counted(lambda: tg.autotune_plan(cases[0][1], xb,
+                                                                 kernel_variants=True))
+    check("wisdom round trip", loaded == saved and len(saved) == 3 and again.from_cache
+          and again_launches == (0, 0),
+          f"save_wisdom/load_wisdom of {len(saved)} entries equal: {loaded == saved}; "
+          f"autotune_plan after loading from_cache {again.from_cache}, launches {again_launches}")
+    del xc
+
+    # ---- 11b. config 7 served with autotune=True and over a mesh -----------
+    plan7 = tg.SpectrogramPlan(tg.SpectrogramParams(stft, SR), tg.FreqScale.MEL,
+                               tg.AmpScale.DECIBELS, scale_params=mel_p,
+                               log_params=tg.LogParams(-80.0), dtype="float32")
+    srng = np.random.default_rng(SEED + 5)  # phase 7's clips
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for i in range(n_files):
+            path = Path(tmp) / f"clip_{i:04d}.wav"
+            write_wav(path, (0.1 * srng.standard_normal(n)).astype(np.float32), int(SR),
+                      bits=16)
+            paths.append(str(path))
+        rows_dev = torch.from_numpy(np.stack([read_wav(p, mono=True)[0] for p in paths])).to(dev)
+        tg.clear_wisdom()
+        pipes = {
+            "mesh=None": tg.FeaturePipeline(plan7, batch_size=batch, target_seconds=seconds),
+            "autotune=True": tg.FeaturePipeline(plan7, batch_size=batch, target_seconds=seconds,
+                                                autotune=True),
+            "mesh (1,)": tg.FeaturePipeline(plan7, batch_size=batch, target_seconds=seconds,
+                                            mesh=create_device_mesh((1,), ("data",))),
+            "mesh (4,) on one card": tg.FeaturePipeline(
+                plan7, batch_size=batch, target_seconds=seconds,
+                mesh=create_device_mesh((4,), ("data",), devices=[dev] * 4)),
+        }
+        served = {}
+        n_batches = -(-n_files // batch)
+        for label, pipe in pipes.items():
+            pipe.warm_preload()
+            batches, launches = counted(lambda: list(pipe.run(paths)))
+            feats = [b.features for b in batches]
+            served[label] = feats
+            with torch.no_grad():
+                refs = [pipe.plan.compute_batch(rows_dev[i * batch:(i + 1) * batch])
+                        for i in range(len(batches))]
+            err = max(float((f - r).abs().max()) for f, r in zip(feats, refs))
+            rate = float(np.median([pipe.throughput_report(paths)["audio_s_per_s"]
+                                    for _ in range(3)]))
+            blocks = 4 if "(4,)" in label else 1
+            kernel_route = pipe.plan.method.startswith("pallas")
+            want = (n_batches * blocks, 0) if kernel_route else (0, 0)
+            extra = ""
+            if pipe.autotune_result is not None:
+                r = pipe.autotune_result
+                extra = (f"; autotune winner {r.winner!r} (auto: {plan7.method!r}), candidates "
+                         + ", ".join(f"{m} {v:.4f} ms" for m, v in r.timings_ms.items()))
+            limit = P11_DB if blocks > 1 else 0.0
+            check(f"config 7 {label}", len(batches) == n_batches and err <= limit
+                  and launches == want,
+                  f"{card} | {len(batches)} batches of {tuple(feats[0].shape)} vs compute_batch "
+                  f"of the read_wav rows max|err| {err:.3e} (limit {limit:g}); launches f32/tier "
+                  f"{launches[0]}/{launches[1]} (want {want[0]}/{want[1]}) | {rate:.1f} audio-s/s "
+                  f"(median of 3; phase 7 float32 {phase7_rates.get('float32', float('nan')):.1f})"
+                  + extra)
+        bit1 = all(torch.equal(a, b) for a, b in zip(served["mesh (1,)"], served["mesh=None"]))
+        bit4 = all(torch.equal(a, b) for a, b in zip(served["mesh (4,) on one card"],
+                                                     served["mesh=None"]))
+        check("config 7 mesh vs mesh=None", bit1,
+              f"one-entry mesh bit-equal to mesh=None: {bit1}; the 4-entry mesh on one card "
+              f"bit-equal: {bit4}")
+        del served, rows_dev
+    tg.clear_wisdom()
+
+    # ---- 11c. data parallelism on the flagship batch ------------------------
+    plan = tg.MfccPlan(stft, SR, **mkw)
+    with torch.no_grad():
+        ref = plan.compute_batch(xb)
+    lim = P11_MFCC_REL * float(ref.abs().max())
+    for label, mesh in (("(1,)", create_device_mesh((1,), ("data",))),
+                        ("(4,) on one card", create_device_mesh((4,), ("data",),
+                                                                devices=[dev] * 4))):
+        step = data_parallel_pipeline(plan.compute_batch, mesh)
+        sharded = shard_batch(xb, mesh)
+        out, launches = counted(lambda: step(sharded).gather())
+        with torch.no_grad():
+            t_dp = time_ms(lambda: step(sharded))
+        err = float((out - ref).abs().max())
+        blocks = mesh.shape["data"]
+        check(f"data parallel {label}", err <= lim and launches == (blocks, 0)
+              and tuple(out.shape) == tuple(ref.shape),
+              f"{card} | shard_batch + data_parallel_pipeline(MfccPlan.compute_batch) on "
+              f"{tuple(xb.shape)}: vs compute_batch max|err| {err:.3e} (limit {lim:.3e}), "
+              f"bit-equal {torch.equal(out, ref)}; f32 launches {launches[0]} (want {blocks}, one "
+              f"a block), tier {launches[1]} | median/p90 of 100 {t_dp[0]:.4f}/{t_dp[1]:.4f} ms")
+    mesh4 = create_device_mesh((4,), ("data",), devices=[dev] * 4)
+    n_rows = batch - 2  # 30 rows at the full size: two short of the mesh's multiple
+    padded, mask = shard_batch(xb[:n_rows], mesh4, return_mask=True)
+    out, launches = counted(lambda: data_parallel_pipeline(plan.compute_batch, mesh4)(
+        padded).gather())
+    err = float((out[mask.to(dev)] - ref[:n_rows]).abs().max())
+    check("data parallel uneven", err <= lim and launches == (4, 0) and out.shape[0] == batch
+          and int(mask.sum()) == n_rows,
+          f"{n_rows} rows over 4 entries: padded to {out.shape[0]}, mask {int(mask.sum())} true; "
+          f"masked rows vs compute_batch max|err| {err:.3e} (limit {lim:.3e}); f32 launches "
+          f"{launches[0]} (want 4)")
+    del out, ref, padded
+
+    # ---- 11d. sequence parallelism on 10 min of noise -----------------------
+    long_x = torch.from_numpy((0.1 * rng.standard_normal(seq_samples)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        ref = plan7.compute(long_x).data
+        t_ref = time_ms(lambda: plan7.compute(long_x), reps=20)
+    for label, mesh in (("(1,)", create_device_mesh((1,), ("time",))),
+                        ("(4,) on one card", create_device_mesh((4,), ("time",),
+                                                                devices=[dev] * 4))):
+        seq = sequence_parallel_spectrogram(plan7, mesh, axis="time")
+        h0 = sequence_parallel_spectrogram.halo_copies
+        out, launches = counted(lambda: seq(long_x))
+        halos = sequence_parallel_spectrogram.halo_copies - h0
+        with torch.no_grad():
+            t_seq = time_ms(lambda: seq(long_x), reps=20)
+        err = float((out - ref).abs().max())
+        blocks = mesh.shape["time"]
+        check(f"sequence parallel {label}", err <= P11_DB and launches == (blocks, 0)
+              and halos == blocks - 1 and tuple(out.shape) == tuple(ref.shape),
+              f"{card} | {seq_samples} samples (mel-128 dB 1024/256) -> {tuple(out.shape)}: vs "
+              f"plan.compute max|err| {err:.3e} dB (limit {P11_DB:g}); f32 launches "
+              f"{launches[0]} (want {blocks}), halo copies {halos} | median/p90 of 20: "
+              f"{t_seq[0]:.4f}/{t_seq[1]:.4f} ms against compute {t_ref[0]:.4f}/{t_ref[1]:.4f} ms")
+    del long_x, ref, out
+
+    # ---- 11e. binaural on 32 x 10 s stereo ----------------------------------
+    bparams = tg.SpectrogramParams(tg.StftParams(512, 256), SR)
+    src = rng.standard_normal((batch, n + 16))
+    stereo = np.stack([src[:, 16:] + 0.3 * rng.standard_normal((batch, n)),
+                       0.7 * src[:, 9:n + 9] + 0.3 * rng.standard_normal((batch, n))], axis=1)
+    kinds = (("itd", tg.ITDSpectrogramParams(bparams)), ("ipd", tg.IPDSpectrogramParams(bparams)),
+             ("ild", tg.ILDSpectrogramParams(bparams)), ("ilr", tg.ILRSpectrogramParams(bparams)))
+    cpu = torch.device("cpu")
+    spec64 = tb._stereo_spec_math(torch.from_numpy(stereo), tb._window(kinds[0][1], torch.float64,
+                                                                       cpu), 512, 256, True, 0, 257)
+    mags = spec64.abs()
+    peak = mags.amax(dim=(1, 2, 3), keepdim=True)[:, :, 0]
+    live_all = ((mags[:, 0] > 1e-3 * peak) & (mags[:, 1] > 1e-3 * peak)).numpy()
+    for kind, p in kinds:
+        b0, b1, bw = tb._bin_range(p)
+        fn = getattr(tg, f"compute_{kind}_spectrogram_batch")
+        want = fn(stereo, p, dtype="float64", device="cpu").numpy()
+        live = live_all[:, b0:b1]
+        for dt in ("float64", "float32"):
+            got = fn(stereo, p, dtype=dt).double().cpu().numpy()
+            if kind in ("ild", "ilr"):
+                d = np.abs(np.nan_to_num(got - want, nan=0.0))
+                nan_ok = bool((np.isnan(got) == np.isnan(want))[live].all())
+            else:
+                a, b = got, want
+                if kind == "itd":
+                    scale = 2 * np.pi * bw * np.arange(b0, b1)[:, None]
+                    a, b = a * scale, b * scale
+                d = np.abs(np.remainder(a - b + np.pi, 2 * np.pi) - np.pi)
+                nan_ok = True
+            if dt == "float64":
+                reading, limit = float(d.max()), P11_BIN64
+            else:
+                reading = float(d[live].max())
+                limit = {"ild": P11_ILD32, "ilr": P11_ILR32}.get(kind, P11_PHASE32)
+            with torch.no_grad():
+                xs = torch.from_numpy(stereo.astype(dt)).to(dev)
+                t = time_ms(lambda: fn(xs, p, dtype=dt), reps=20)
+            check(f"binaural {kind} {dt}", reading <= limit and nan_ok,
+                  f"{card} | compute_{kind}_spectrogram_batch {stereo.shape} on the card vs "
+                  f"the CPU f64 run: {reading:.3e} (limit {limit:g}"
+                  f"{', phases modulo 2pi' if kind in ('itd', 'ipd') else ''}"
+                  f"{', live cells' if dt == 'float32' else ''}) | median/p90 of 20 "
+                  f"{t[0]:.4f}/{t[1]:.4f} ms")
+    # one-shots and histograms (f64, one pair)
+    for kind, p in kinds:
+        one = getattr(tg, f"compute_{kind}_spectrogram")
+        got = one(stereo[0], p, dtype="float64")
+        want = one(stereo[0], p, dtype="float64", device="cpu")
+        # ILD and ILR histograms cube their counts by default: compare counts
+        hist = (lambda r: r.histogram(exponent=1)) if kind in ("ild", "ilr") else (
+            lambda r: r.histogram())
+        hg, hw = hist(got), hist(want)
+        moved = 0.5 * float(np.abs(hg - hw).sum())
+        counts, counts_w = hg.sum(axis=0), hw.sum(axis=0)
+        total = float(counts_w.sum())
+        check(f"binaural {kind} one-shot", got.data.is_cuda and bool((counts == counts_w).all())
+              and moved <= P11_HIST_MOVED * total and got.shape == want.shape,
+              f"compute_{kind}_spectrogram(10 s, f64) on the card {got.shape}, histogram "
+              f"{hg.shape}: valid counts per frame equal to the CPU run's, {moved:.0f} of "
+              f"{total:.0f} values in another bin (limit {P11_HIST_MOVED:g})")
+
+    # ---- 11f. the six sources on 10 s --------------------------------------
+    x1 = xb[0]
+    x1_cpu = x1.double().cpu()
+    mel_src = tg.MelDbPlan(tg.SpectrogramParams(stft, SR), mel_p, tg.LogParams(-80.0),
+                           dtype="float32")
+    mel_src64 = tg.MelDbPlan(tg.SpectrogramParams(stft, SR), mel_p, tg.LogParams(-80.0),
+                             dtype="float64", device="cpu")
+    erb = tg.ErbParams(32, 50.0, 8000.0)
+    srcs = [
+        ("PlanSource", tg.PlanSource(mel_src), tg.PlanSource(mel_src64), (1, 0)),
+        ("GammatoneSource", tg.GammatoneSource(SR, 1024, 256, erb),
+         tg.GammatoneSource(SR, 1024, 256, erb, dtype="float64", device="cpu"), (0, 0)),
+        ("CqtSource", tg.CqtSource(SR, tg.CqtParams(12, 7, 32.703), 256),
+         tg.CqtSource(SR, tg.CqtParams(12, 7, 32.703), 256, dtype="float64", device="cpu"),
+         (0, 0)),
+        ("ChromaSource", tg.ChromaSource(stft, SR),
+         tg.ChromaSource(stft, SR, dtype="float64", device="cpu"), (1, 0)),
+        ("MfccSource", tg.MfccSource(stft, SR, 128, tg.MfccParams(40)),
+         tg.MfccSource(stft, SR, 128, tg.MfccParams(40), dtype="float64", device="cpu"), (1, 0)),
+    ]
+    for label, s, s_cpu, want_launches in srcs:
+        t0 = time.perf_counter()
+        out, launches = counted(lambda: s.compute_matrix(x1))
+        wall = time.perf_counter() - t0
+        ref = s_cpu.compute_matrix(x1_cpu)
+        err = float((out.double().cpu() - ref).abs().max())
+        lim = P11_SRC_DB if label == "PlanSource" else P11_SRC_REL * float(ref.abs().max())
+        ok = (err <= lim and launches == want_launches and out.shape[0] == s.n_bands
+              and out.is_cuda and isinstance(s, tg.SpectrogramSource))
+        timing = ""
+        if label != "GammatoneSource":
+            with torch.no_grad():
+                t = time_ms(lambda: s.compute_matrix(x1), reps=20)
+            timing = f"median/p90 of 20 {t[0]:.4f}/{t[1]:.4f} ms"
+        else:
+            timing = f"one call {wall * 1e3:.1f} ms (host clock, synchronized; auto = scan)"
+        check(f"source {label}", ok,
+              f"{card} | compute_matrix(10 s) {tuple(out.shape)} vs the CPU f64 source "
+              f"max|err| {err:.3e} (limit {lim:.3e}); launches f32/tier {launches[0]}/"
+              f"{launches[1]} (want {want_launches[0]}/{want_launches[1]}) | {timing}")
+    # the sixth: the protocol itself, on a plan source of the flagship MFCC's mel plan
+    check("source protocol", isinstance(tg.PlanSource(plan._mel_plan), tg.SpectrogramSource)
+          and not isinstance(object(), tg.SpectrogramSource),
+          "SpectrogramSource is runtime-checkable: a PlanSource is one, an object is not")
+
+    # ---- 11g. serde on the card ----------------------------------------------
+    items = [("Spectrogram", mel_src.compute(x1)), ("Mfcc", plan.compute(x1)),
+             ("ItdSpectrogram", tg.compute_itd_spectrogram(stereo[0], kinds[0][1]))]
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, obj in items:
+            path = Path(tmp) / f"{label}.npz"
+            serde.save(obj, path)
+            back = serde.load(path)
+            same = (type(back) is type(obj) and back.data.is_cuda
+                    and torch.equal(back.data, obj.data) and back.params == obj.params)
+            check(f"serde {label}", same,
+                  f"NPZ save/load of a CUDA {label} {tuple(obj.data.shape)}: type, device, data "
+                  f"and params equal after loading: {same}")
+    print(f"[11 phase] {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs one GPU")
@@ -1960,7 +2350,7 @@ def main() -> None:
           f"at x2 {clib162_ms:.4f}/{clib162_p90:.4f} ms | tier 1-pass vs the f32 chain: "
           f"{'faster' if c16_ms < clib_ms else 'SLOWER'}")
 
-    serving_phase(tg, ff, dev, card, tier_bound)
+    phase7_rates = serving_phase(tg, ff, dev, card, tier_bound)
 
     # ---- 8. the spectrogram-family surface ------------------------------
     # First the packed product of the 1-pass tier (K1e: method="pallas:dif"
@@ -1996,6 +2386,7 @@ def main() -> None:
     del xb
     config4_phase(tg, ff, dev, card)
     fft_image_phase(tg, ff, dev, card)
+    tuning_parallel_phase(tg, ff, dev, card, phase7_rates)
 
     print(json.dumps({"kernels": [{
         "name": "fused_features",

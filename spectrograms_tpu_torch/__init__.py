@@ -37,7 +37,15 @@ Serving: ``FeaturePipeline`` reads WAV files (or decoded arrays) through
 the native loader (``runtime/``, a ctypes binding to ``native/sgtpu.cpp``),
 ships them as float32, int16 or μ-law and returns per-batch features with
 frame masks; ``FeatureSet`` runs several plans over one batch, sharing the
-multirate plans' decimation (``ops/decimate.py``).
+multirate plans' decimation (``ops/decimate.py``). ``autotune_plan`` picks
+a plan's ``method=`` by measuring it on the device and remembers the
+winner (``autotune.py``); ``parallel`` holds device meshes, sharded batches
+and the halo-exchange sequence parallelism behind
+``FeaturePipeline(mesh=…)``.
+
+Also: binaural ITD/IPD/ILD/ILR analysis (``binaural.py``), the
+``SpectrogramSource`` protocol and its sources (``source.py``), and
+``serde`` (JSON and NPZ files that load in either package).
 """
 
 from __future__ import annotations
@@ -169,6 +177,46 @@ from .featureset import FeatureSet
 from .serving import FeatureBatch, FeatureSetBatch, FeaturePipeline
 from . import runtime
 from .cache import fft_plan_cache_info, clear_fft_plan_cache, cache_stats
+from .binaural import (
+    magphase,
+    ITDSpectrogramParams,
+    IPDSpectrogramParams,
+    ILDSpectrogramParams,
+    ILRSpectrogramParams,
+    ItdSpectrogram,
+    IpdSpectrogram,
+    IldSpectrogram,
+    IlrSpectrogram,
+    compute_itd_spectrogram,
+    compute_ipd_spectrogram,
+    compute_ild_spectrogram,
+    compute_ilr_spectrogram,
+    compute_itd_spectrogram_diff,
+    compute_ilr_spectrogram_diff,
+    compute_itd_spectrogram_batch,
+    compute_ipd_spectrogram_batch,
+    compute_ild_spectrogram_batch,
+    compute_ilr_spectrogram_batch,
+)
+from .source import (
+    SpectrogramSource,
+    PlanSource,
+    GammatoneSource,
+    CqtSource,
+    ChromaSource,
+    MfccSource,
+)
+from . import parallel
+from . import serde
+from .autotune import (
+    AutotuneResult,
+    autotune,
+    autotune_plan,
+    wisdom,
+    clear_wisdom,
+    save_wisdom,
+    load_wisdom,
+)
 
 __version__ = "0.5.1"
 
@@ -310,4 +358,41 @@ __all__ = [
     "fft_plan_cache_info",
     "clear_fft_plan_cache",
     "cache_stats",
+    # binaural
+    "magphase",
+    "ITDSpectrogramParams",
+    "IPDSpectrogramParams",
+    "ILDSpectrogramParams",
+    "ILRSpectrogramParams",
+    "ItdSpectrogram",
+    "IpdSpectrogram",
+    "IldSpectrogram",
+    "IlrSpectrogram",
+    "compute_itd_spectrogram",
+    "compute_ipd_spectrogram",
+    "compute_ild_spectrogram",
+    "compute_ilr_spectrogram",
+    "compute_itd_spectrogram_diff",
+    "compute_ilr_spectrogram_diff",
+    "compute_itd_spectrogram_batch",
+    "compute_ipd_spectrogram_batch",
+    "compute_ild_spectrogram_batch",
+    "compute_ilr_spectrogram_batch",
+    # sources
+    "SpectrogramSource",
+    "PlanSource",
+    "GammatoneSource",
+    "CqtSource",
+    "ChromaSource",
+    "MfccSource",
+    "parallel",
+    "serde",
+    # autotune
+    "AutotuneResult",
+    "autotune",
+    "autotune_plan",
+    "wisdom",
+    "clear_wisdom",
+    "save_wisdom",
+    "load_wisdom",
 ] + [name for name in _functions_all if name not in ("fft_plan_cache_info", "clear_fft_plan_cache")]

@@ -8,7 +8,8 @@ decimation filters, the CQT kernels and multirate groups, the gammatone IIR
 bank, the MDCT bases and the image filters' masks (host and device copies). ``fft_plan_cache_info`` reports each one's counters
 and, when a card is present, the CUDA memory PyTorch has allocated under the
 label ``device.cuda_memory_allocated`` (bytes; the JAX package reports its
-live arrays there). ``clear_fft_plan_cache`` empties every host cache.
+live arrays there), and the autotune wisdom's size under ``autotune.wisdom``.
+``clear_fft_plan_cache`` empties every host cache (not the wisdom).
 """
 
 from __future__ import annotations
@@ -51,8 +52,8 @@ def _host_caches():
 
 
 def fft_plan_cache_info() -> Dict[str, Dict[str, int]]:
-    """Per-cache ``{hits, misses, currsize, maxsize}``, and the CUDA memory
-    allocated when a card is present."""
+    """Per-cache ``{hits, misses, currsize, maxsize}``, the CUDA memory
+    allocated when a card is present, and the wisdom's size."""
     info: Dict[str, Dict[str, int]] = {}
     for name, fn in _host_caches().items():
         ci = fn.cache_info()
@@ -69,6 +70,14 @@ def fft_plan_cache_info() -> Dict[str, Dict[str, int]]:
             "currsize": torch.cuda.memory_allocated(),
             "maxsize": -1,
         }
+    from .autotune import wisdom
+
+    info["autotune.wisdom"] = {
+        "hits": -1,  # decisions taken without measuring are marked on AutotuneResult
+        "misses": -1,
+        "currsize": len(wisdom()),
+        "maxsize": -1,
+    }
     return info
 
 

@@ -156,6 +156,7 @@ class ChromaPlan:
         device=None,
     ):
         self.params = chroma_params
+        self._method_arg = method  # what a copy on another device resolves anew
         self._dtype = parse_dtype(dtype)
         self._stft = stft_params
         self._sample_rate_hz = float(sample_rate_hz)

@@ -164,6 +164,7 @@ class MfccPlan:
         if mfcc_params.n_mfcc > mel_params.n_mels:
             raise InvalidInputError("n_mfcc must be <= n_mels")
         self.mfcc_params = mfcc_params
+        self._method_arg = method  # what a copy on another device resolves anew
         self._dtype = parse_dtype(dtype)
         self._stft = stft_params
         self._log_params = log_params

@@ -336,6 +336,7 @@ class SpectrogramPlan:
         self.method = _resolve_method(
             method, n_fft, hop, self._dtype, freq_scale, self.precision, self.device
         )
+        self._method_arg = method  # what a copy on another device resolves anew
 
         mapping = None  # (n_out, n_bins) f64, or None for identity
         self._cqt_bands = self._cqt_multirate = None

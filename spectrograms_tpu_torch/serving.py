@@ -12,9 +12,14 @@ Counterpart of ``spectrograms_tpu.serving``:
 Copies to the card run on a stream of their own and the compute stream
 waits on an event, so the work is ordered by stream waits, not host syncs.
 ``pipeline_uploads=True`` stages each batch in pinned memory and enqueues
-its copy before the previous batch is dispatched. ``FeaturePipeline(mesh=…)``
-(data parallelism over several cards) and ``autotune=True`` are not ported
-yet and raise.
+its copy before the previous batch is dispatched.
+
+``FeaturePipeline(mesh=…)`` splits each batch into row blocks over the
+mesh's data axis, one a coordinate, and runs each block on its entry's
+device with the plan's copy there (``parallel.data.plan_replica``); the
+features come back in row order on the plan's device. ``autotune=True``
+picks the plan's ``method=`` by measuring it on a zero batch of the serving
+shape (the block's shape under a mesh) before the first batch.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from .errors import InvalidInputError
 from .featureset import FeatureSet
 from .ops.framing import frame_count
 from .ops.fused_factored import build_kernels
+from .parallel.data import plan_replica
 from .runtime.loader import AudioBatchLoader
 from .runtime.native import native_available
 from .runtime.ulaw import ulaw_decode_torch
@@ -137,8 +143,11 @@ class FeaturePipeline:
     bytes) and dequantizes on the card with the exact ``x·(1/32768)``,
     bit-equal to float32 for PCM16 sources; ``"ulaw"`` ships one byte a
     sample (G.711, ≈ 38 dB SQNR), expanded on the card by integer ops.
-    ``mesh``/``data_axis`` (data parallelism) and ``autotune`` keep the JAX
-    signature and are not ported yet.
+    ``mesh``/``data_axis``: data parallelism over the mesh's ``data_axis``
+    (``batch_size`` divides over it; every entry belongs to this process).
+    ``autotune=True`` replaces the plan by ``autotune_plan``'s winner for
+    this serving shape (``autotune_result``); a ``FeatureSet`` is tuned
+    member by member instead.
     """
 
     def __init__(
@@ -157,18 +166,11 @@ class FeaturePipeline:
         pipeline_uploads: bool = False,
     ):
         self._is_set = isinstance(plan, FeatureSet)
-        if mesh is not None:
-            raise InvalidInputError(
-                "FeaturePipeline(mesh=...) is not yet ported: data parallelism "
-                "over several GPUs (torch.distributed) comes with parallel/"
-            )
         if autotune and self._is_set:
             raise InvalidInputError(
                 "autotune= is per-plan (it measures method= lowerings); "
                 "tune FeatureSet members individually before composing"
             )
-        if autotune:
-            raise InvalidInputError("FeaturePipeline(autotune=True) is not yet ported")
         self.plan = plan
         self.on_rate_mismatch = on_rate_mismatch
         self.pipeline_uploads = bool(pipeline_uploads)
@@ -210,6 +212,44 @@ class FeaturePipeline:
         if self.target_len <= 0:
             raise InvalidInputError("target_seconds must be positive")
         self.batch_size = int(batch_size)
+
+        # The measured-fastest lowering for this serving shape (a decision
+        # in the wisdom, load_wisdom(), skips the measurement). Under a mesh
+        # each entry runs the forward on its block, so the candidates are
+        # measured at the block's shape.
+        self.autotune_result = None
+        if autotune:
+            from .autotune import autotune_plan
+
+            tune_batch = self.batch_size
+            if mesh is not None:
+                tune_batch = max(1, self.batch_size // mesh.shape[data_axis])
+            sample = torch.zeros((tune_batch, self.target_len), dtype=plan._dtype,
+                                 device=plan.device)
+            self.autotune_result = autotune_plan(plan, sample)
+            plan = self.plan = self.autotune_result.plan
+
+        self._mesh_blocks = None
+        if mesh is not None:
+            n_blocks = mesh.shape[data_axis]
+            if self.batch_size % n_blocks != 0:
+                raise InvalidInputError(
+                    f"batch_size {batch_size} must divide evenly over the "
+                    f"'{data_axis}' mesh axis ({n_blocks})"
+                )
+            if not mesh.is_local():
+                raise InvalidInputError(
+                    "FeaturePipeline(mesh=...) serves from one process: every mesh "
+                    "entry must belong to this process (run a pipeline in each "
+                    "process over its own files)"
+                )
+            # (rows, device, the plan's copy there): one block a coordinate
+            # of the data axis; the copies are cached on the plan
+            per = self.batch_size // n_blocks
+            self._mesh_blocks = [
+                (slice(k * per, (k + 1) * per), dev, plan_replica(plan, dev))
+                for k, (dev, _) in enumerate(mesh.axis_devices(data_axis))
+            ]
         self._n_threads = n_threads
         self._prefetch = prefetch_batches
         self._dtype = plan._dtype
@@ -245,11 +285,22 @@ class FeaturePipeline:
             return ulaw_decode_torch(xb, self._dtype)
         return xb.to(self._dtype)
 
-    def _step(self, xb: torch.Tensor):
-        """Dequantize and run the plan (or every member of the set)."""
-        forward = self.plan._step_impl if self._is_set else self.plan._forward
+    def _run_plan(self, plan, xb: torch.Tensor):
+        """Dequantize and run ``plan`` (or every member of the set)."""
+        forward = plan._step_impl if self._is_set else plan._forward
         with torch.no_grad():
             return forward(self._dequant(xb))
+
+    def _step(self, xb: torch.Tensor):
+        """The step over one shipped batch: the plan, or under a mesh each
+        row block on its entry's device, gathered in row order."""
+        if self._mesh_blocks is None:
+            return self._run_plan(self.plan, xb)
+        outs = [self._run_plan(p, xb[rows].to(dev)) for rows, dev, p in self._mesh_blocks]
+        if self._is_set:
+            return tuple(torch.cat([o[i].to(self.device) for o in outs])
+                         for i in range(len(outs[0])))
+        return torch.cat([o.to(self.device) for o in outs])
 
     # ---- masks and batches ----------------------------------------------------
     @staticmethod

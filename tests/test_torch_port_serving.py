@@ -8,8 +8,8 @@ preload (with the corrupt-file error order), ``pipeline_uploads``,
 FeatureSet serving and the MFCC plan. In the port int16 serving is
 bit-equal to float32 serving (``tests/test_serving.py:178``), and μ-law
 within the bound of ``tests/test_serving.py:319-342``. Also: the preload
-budget, ``throughput_report``'s keys, ``warm_preload``, and the "not yet
-ported" errors for ``mesh=`` and ``autotune=True``.
+budget, ``throughput_report``'s keys, ``warm_preload``, and ``mesh=`` and
+``autotune=True`` (against ``mesh=None`` and the JAX pipeline).
 """
 
 import numpy as np
@@ -251,14 +251,71 @@ def test_warm_preload_builds_nothing_on_the_cpu(clips):
         "fused_tier_features", "fused_features"}
 
 
-def test_not_yet_ported_options_raise():
-    with pytest.raises(tg.InvalidInputError, match="mesh=.*not yet ported"):
-        tg.FeaturePipeline(mel_db(tg), batch_size=2, target_seconds=1.0, mesh=object())
-    with pytest.raises(tg.InvalidInputError, match="autotune=True.*not yet ported"):
-        tg.FeaturePipeline(mel_db(tg), batch_size=2, target_seconds=1.0, autotune=True)
-    with pytest.raises(tg.InvalidInputError, match="autotune"):
-        tg.FeaturePipeline(tg.FeatureSet([mel_db(tg)]), batch_size=2, target_seconds=1.0,
-                           autotune=True)
+def test_not_yet_ported_options_raise(clips):
+    """``mesh=`` and ``autotune=True`` work: a 2-entry mesh
+    (the CPU, repeated) serves the same batches as ``mesh=None`` bit for
+    bit and JAX's pipeline over a 2-device mesh within 1e-3 dB; autotune
+    tunes at the block's shape (4 rows over 2 entries) and its winner
+    serves the JAX features. What still raises is JAX's: an uneven
+    ``batch_size`` over the data axis, and ``autotune=True`` on a
+    ``FeatureSet``."""
+    from spectrograms_tpu.parallel import create_device_mesh as jax_mesh
+    from spectrograms_tpu_torch.parallel import create_device_mesh
+
+    paths, _ = clips
+    mesh = create_device_mesh((2,), ("data",), devices=["cpu"] * 2)
+    plan = mel_db(tg)
+    plain = collect(tg.FeaturePipeline(plan, batch_size=4, target_seconds=1.0).run(paths))
+    meshed = tg.FeaturePipeline(plan, batch_size=4, target_seconds=1.0, mesh=mesh,
+                                transport="int16")
+    got = collect(meshed.run(paths))
+    assert len(got) == len(plain) == 2
+    for (a, la, ma), (b, lb, mb) in zip(got, plain):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(la, lb)
+        np.testing.assert_array_equal(ma, mb)
+    jpipe = JaxPipeline(mel_db(sg), batch_size=4, target_seconds=1.0,
+                        mesh=jax_mesh((2,), ("data",)), transport="int16")
+    assert_close_batches(got, collect(jpipe.run(paths)))
+
+    tg.clear_wisdom()
+    try:
+        tuned = tg.FeaturePipeline(mel_db(tg), batch_size=4, target_seconds=1.0, mesh=mesh,
+                                   autotune=True)
+        r = tuned.autotune_result
+        assert r is not None and not r.from_cache and r.winner in ("fft", "matmul")
+        assert tuned.plan is r.plan and tuned.plan.method == r.winner
+        assert "[2, 16000]" in r.key  # tuned at the block's shape
+        assert_close_batches(collect(tuned.run(paths)), collect(jpipe.run(paths)))
+        again = tg.FeaturePipeline(mel_db(tg), batch_size=4, target_seconds=1.0, mesh=mesh,
+                                   autotune=True)
+        assert again.autotune_result.from_cache and again.autotune_result.winner == r.winner
+    finally:
+        tg.clear_wisdom()
+
+    for m, mk in ((tg, lambda: mesh), (sg, lambda: jax_mesh((2,), ("data",)))):
+        cls = tg.FeaturePipeline if m is tg else JaxPipeline
+        with pytest.raises(m.InvalidInputError, match="must divide evenly"):
+            cls(mel_db(m), batch_size=3, target_seconds=1.0, mesh=mk())
+        with pytest.raises(m.InvalidInputError, match="autotune"):
+            cls(m.FeatureSet([mel_db(m)]), batch_size=2, target_seconds=1.0, autotune=True)
+
+
+def test_featureset_served_over_a_mesh(clips):
+    """A ``FeatureSet`` over a 4-entry mesh: each member equal to the
+    unmeshed set's, rows in order."""
+    from spectrograms_tpu_torch.parallel import create_device_mesh
+
+    paths, _ = clips
+    fs = tg.FeatureSet([mel_db(tg), mel_db(tg, n_mels=32)])
+    mesh = create_device_mesh((4,), ("data",), devices=["cpu"] * 4)
+    a = list(tg.FeaturePipeline(fs, batch_size=4, target_seconds=1.0, mesh=mesh).run(paths))
+    b = list(tg.FeaturePipeline(fs, batch_size=4, target_seconds=1.0).run(paths))
+    assert len(a) == len(b) == 2
+    for x, y in zip(a, b):
+        assert len(x.features) == 2
+        for fx, fy in zip(x.features, y.features):
+            assert torch.equal(fx, fy)
 
 
 def test_constructor_validation_matches_jax():

@@ -219,30 +219,24 @@ def test_port_all_is_a_subset_of_jax_all():
     assert extra == {"Precision", "plan_constants_from_numpy"}, extra
 
 
-# The JAX names the port has yet to port: binaural (with ``magphase``),
-# the sources, autotune, ``parallel`` and ``serde``. A later slice shrinks it.
-STILL_TO_PORT = {
-    "AutotuneResult", "autotune", "autotune_plan", "wisdom", "save_wisdom", "load_wisdom",
-    "clear_wisdom",
-    "ChromaSource", "CqtSource", "GammatoneSource", "MfccSource", "PlanSource",
-    "SpectrogramSource",
-    "ILDSpectrogramParams", "ILRSpectrogramParams", "IPDSpectrogramParams",
-    "ITDSpectrogramParams",
-    "IldSpectrogram", "IlrSpectrogram", "IpdSpectrogram", "ItdSpectrogram",
-    "compute_ild_spectrogram", "compute_ilr_spectrogram", "compute_ipd_spectrogram",
-    "compute_itd_spectrogram", "compute_ild_spectrogram_batch", "compute_ilr_spectrogram_batch",
-    "compute_ipd_spectrogram_batch", "compute_itd_spectrogram_batch",
-    "compute_ilr_spectrogram_diff", "compute_itd_spectrogram_diff",
-    "magphase", "parallel", "serde",
-}
+# The JAX names the port has yet to port: none. Every name of the JAX
+# package's ``__all__`` is the port's (``parallel`` and ``serde`` are
+# modules in both).
+STILL_TO_PORT = set()
 
 
 def test_port_misses_exactly_the_names_still_to_port():
     missing = set(sg.__all__) - set(tg.__all__)
-    assert len(STILL_TO_PORT) == 34
+    assert STILL_TO_PORT == set()
     assert missing == STILL_TO_PORT, (missing - STILL_TO_PORT, STILL_TO_PORT - missing)
     for name in set(tg.__all__):
         assert hasattr(tg, name), name
+    import types
+
+    for name in ("parallel", "serde"):
+        assert isinstance(getattr(tg, name), types.ModuleType)
+        assert isinstance(getattr(sg, name), types.ModuleType)
+        assert set(getattr(tg, name).__all__) == set(getattr(sg, name).__all__)
 
 
 # ---- the DEFAULT tier on config 9's multirate MFCC ---------------------------------------
