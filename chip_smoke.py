@@ -105,7 +105,19 @@ beside this run's:
    the sources on 10 s against their CPU f64 runs (the gammatone bank
    timed once); NPZ ``save``/``load`` of CUDA results. Each f32-kernel
    launch on these paths is counted;
-12. the ``kernels`` JSON line, the card line, and the result line
+12. the cost model, the trace and the interop modules
+   (``profiling_phase``): ``profiling.detect_chip()`` against phase 1's
+   ``nvidia-smi`` reading; config 2's ``MelDbPlan`` on the flagship batch at
+   ``HIGH`` (f32 kernel), ``DEFAULT`` and ``pallas:x2`` (tier kernel),
+   ``fft`` and ``matmul``, each against ``method="matmul"`` at ``HIGHEST``,
+   timed and graded by ``profiling.roofline``: a kernel route's light-speed
+   equal to this script's bound of that kernel, ``task_cost`` one value for
+   every route, no ``pct_of_roofline`` above 100; ``profiling.trace`` over
+   one call on each kernel in a fresh process (``trace_child``), whose
+   Chrome trace names both kernels on a CUDA stream; ``to_torch`` (same storage) and ``to_jax`` (a CUDA DLPack
+   device) of a CUDA result; ``python -m
+   spectrograms_tpu_torch.runtime.build``;
+13. the ``kernels`` JSON line, the card line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero, printing no result, when CUDA is unavailable. Imports
@@ -1732,6 +1744,219 @@ def tuning_parallel_phase(tg, ff, dev, card, phase7_rates, batch: int = 32,
     print(f"[11 phase] {time.perf_counter() - t_phase:.1f} s")
 
 
+def trace_kernels(events) -> dict:
+    """The kernels of each source that a Chrome trace's events name on a
+    CUDA stream: ``{source: [(stream, µs), ...]}``."""
+    kernels = [e for e in events if e.get("cat") == "kernel" and "stream" in e.get("args", {})]
+    return {k: [(e["args"]["stream"], e.get("dur", 0.0)) for e in kernels
+                if f"{k}_kernel<" in e["name"]]
+            for k in ("fused_features", "fused_tier_features")}
+
+
+def trace_child(batch: int = 32, seconds: float = 10.0) -> None:
+    """Phase 12's trace, run in a process of its own (``python -c "import
+    chip_smoke; chip_smoke.trace_child()"``): config 2's plan at HIGH and
+    DEFAULT on a flagship batch, warmed up, then one call of each inside
+    ``profiling.trace``. Prints one JSON line: the trace's size, its kernels
+    of each source by (stream, µs), and the launches counted."""
+    import spectrograms_tpu_torch as tg
+    from spectrograms_tpu_torch import profiling
+    from spectrograms_tpu_torch.ops import fused_factored as ff
+
+    params = tg.SpectrogramParams(tg.StftParams(1024, 256), SR)
+    mel = tg.MelParams(128, 0.0, 8000.0, tg.MelNorm.SLANEY)
+    plans = [tg.MelDbPlan(params, mel, tg.LogParams(-80.0), dtype="float32", **kw)
+             for kw in ({}, dict(precision=tg.Precision.DEFAULT))]
+    xb = torch.from_numpy(signal(np.random.default_rng(SEED + 12), batch, int(seconds * SR),
+                                 SR)).to("cuda")
+    with torch.no_grad():
+        for plan in plans:
+            plan.compute_batch(xb)
+        torch.cuda.synchronize()
+        counters = (ff.fused_factored_features, ff.fused_tier_features)
+        for c in counters:
+            c.launches = 0
+        with tempfile.TemporaryDirectory() as tmp:
+            with profiling.trace(tmp) as tr:
+                for plan in plans:
+                    plan.compute_batch(xb)
+            size = Path(tr.path).stat().st_size
+            with open(tr.path) as f:
+                events = json.load(f)["traceEvents"]
+    print(json.dumps({"bytes": size, "events": len(events),
+                      "launches": [c.launches for c in counters],
+                      "kernels": trace_kernels(events)}))
+
+
+# Phase 12's limits. The cost model's light-speed of a kernel route against
+# the bound this script computes for that kernel (f32_bound, tier_bound):
+# the same counts, so equal up to rounding. A measured time can never beat
+# the light-speed of the work it did: pct_of_roofline above 100 means a
+# count is wrong. Kernel routes against method="matmul" at phase 8's limits.
+P12_LIGHT_REL = 1e-9
+P12_PCT_MAX = 100.0
+
+
+def profiling_phase(tg, ff, dev, card, tier_bound, batch: int = 32,
+                    seconds: float = 10.0) -> None:
+    """Phase 12: the cost model, the trace and the interop modules on the
+    card (see the module docstring). Each check prints its reading before a
+    failure ends the run."""
+    import spectrograms_tpu_torch.jax as tgj
+    import spectrograms_tpu_torch.torch as tgt
+    from spectrograms_tpu_torch import profiling
+    from spectrograms_tpu_torch.ops.filterbanks import mel_filterbank
+
+    counters = (ff.fused_factored_features, ff.fused_tier_features)
+
+    def check(label, ok, reading):
+        print(f"[12 {label}] {reading} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"profiling phase: {label}")
+
+    def counted(fn):
+        """fn() with both kernels' counts set to 0 just before it and read
+        just after: (result, (f32 launches, tier launches))."""
+        for c in counters:
+            c.launches = 0
+        with torch.no_grad():
+            out = fn()
+        torch.cuda.synchronize()
+        return out, tuple(c.launches for c in counters)
+
+    t_phase = time.perf_counter()
+    # ---- 12a. the card's peaks ----------------------------------------------
+    chip = profiling.detect_chip()
+    limit_w = float(card.rsplit(",", 1)[1].strip().removesuffix("W"))
+    check("detect_chip", chip == profiling.ChipSpec("h100-sxm", 989.0, 67.0, 3350.0, limit_w),
+          f"{card} | detect_chip() -> {chip}; nvidia-smi's power.limit {limit_w} W")
+
+    # ---- 12b. config 2's routes on the flagship batch, against their roofline --
+    n = int(seconds * SR)
+    xb = torch.from_numpy(signal(np.random.default_rng(SEED + 12), batch, n, SR)).to(dev)
+    params = tg.SpectrogramParams(tg.StftParams(1024, 256), SR)
+    mel = tg.MelParams(128, 0.0, 8000.0, tg.MelNorm.SLANEY)
+    db = tg.LogParams(-80.0)
+    dflt = dict(precision=tg.Precision.DEFAULT)
+    routes = {  # label: (plan kwargs, launches f32/tier a call)
+        "HIGH": ({}, (1, 0)),
+        "DEFAULT": (dflt, (0, 1)),
+        "pallas:x2": (dict(method="pallas:x2", **dflt), (0, 1)),
+        "fft": (dict(method="fft"), (0, 0)),
+        "matmul": (dict(method="matmul"), (0, 0)),
+    }
+    plans = {label: tg.MelDbPlan(params, mel, db, dtype="float32", **kw)
+             for label, (kw, _) in routes.items()}
+    with torch.no_grad():
+        exact = tg.MelDbPlan(params, mel, db, dtype="float32", method="matmul",
+                             precision=tg.Precision.HIGHEST).compute_batch(xb)
+    mel64 = mel_filterbank(SR, 1024, mel)
+    frames = batch * exact.shape[-1]
+    io = (4 * xb.numel(), 4 * exact.numel())
+    bounds = {  # the script's own bound of each kernel route, ms
+        "HIGH": f32_bound(xb.numel(), exact.numel(), frames, 1024, mel64, None, False)[0],
+        "DEFAULT": tier_bound("bf16", True, 1024, mel64, 0, frames, *io, False)[0],
+        "pallas:x2": tier_bound("bf16x2", False, 1024, mel64, 0, frames, *io, False)[0],
+    }
+    tasks = set()
+    for label, (kw, want) in routes.items():
+        plan = plans[label]
+        y, launches = counted(lambda: plan.compute_batch(xb))
+        if label in ("DEFAULT", "pallas:x2"):
+            err, lim, ok_err = tier_err(y, exact, "db", "bf16" if label == "DEFAULT" else "bf16x2")
+            what = "in power"
+        else:
+            err = float((y - exact).abs().max())
+            lim, ok_err, what = SURF_DB, err <= SURF_DB, "dB"
+        with torch.no_grad():
+            ms, p90 = time_ms(lambda: plan.compute_batch(xb))
+        rep = profiling.roofline(plan, n, ms / 1e3, batch=batch, chip=chip)
+        task = profiling.task_cost(plan, n, batch)
+        tasks.add((task.flops, task.bytes_hbm))
+        light_ms = rep["light_speed_s"] * 1e3
+        bound_note, ok_bound = "", True
+        if label in bounds:
+            rel = abs(light_ms - bounds[label]) / bounds[label]
+            ok_bound = rel <= P12_LIGHT_REL
+            bound_note = (f"; the script's bound {bounds[label] * 1e3:.4f} us (relative "
+                          f"difference {rel:.1e}, limit {P12_LIGHT_REL:g})")
+        ok = (ok_err and ok_bound and launches == want and tuple(y.shape) == tuple(exact.shape)
+              and bool(torch.isfinite(y).all()) and rep["pct_of_roofline"] <= P12_PCT_MAX)
+        check(f"roofline {label}", ok,
+              f"{card} | MelDbPlan(1024/256, mel-128 dB) {label} (method {plan.method!r}) on "
+              f"({batch}, {n}): launches f32/tier {launches[0]}/{launches[1]} (want "
+              f"{want[0]}/{want[1]}); vs HIGHEST matmul max|err| {err:.3e} {what} (limit "
+              f"{lim:.3e}) | median/p90 of 100 {ms:.4f}/{p90:.4f} ms | light-speed "
+              f"{light_ms * 1e3:.4f} us{bound_note}; {rep['flops'] / 1e9:.4f} GFLOP, "
+              f"{rep['bytes_hbm'] / 1e6:.4f} MB; pct_of_roofline {rep['pct_of_roofline']:.2f} "
+              f"(limit {P12_PCT_MAX:g}); task light-speed "
+              f"{rep['task_light_speed_s'] * 1e6:.4f} us ({rep['task_flops'] / 1e9:.4f} GFLOP), "
+              f"pct_of_task_roofline {rep['pct_of_task_roofline']:.2f}; achieved "
+              f"{rep['achieved_tflops']:.3f} TFLOP/s, {rep['achieved_gbps']:.1f} GB/s")
+    check("task_cost", len(tasks) == 1,
+          f"task_cost of the five routes: {sorted(tasks)} (one value: {len(tasks) == 1})")
+    del exact
+
+    # ---- 12c. a trace of one call on each kernel ---------------------------------
+    # In a process of its own: in this long-lived one torch.profiler stops
+    # recording kernels after the serving phase (the launches still show),
+    # first those of the ctypes-loaded kernels, later every kernel, whether
+    # the kernels link the CUDA runtime statically or shared (bisected on an
+    # H100 80GB HBM3). This process's reading is printed beside.
+    with tempfile.TemporaryDirectory() as tmp:
+        with torch.no_grad(), profiling.trace(tmp) as tr:
+            plans["HIGH"].compute_batch(xb)
+            plans["DEFAULT"].compute_batch(xb)
+        with open(tr.path) as f:
+            here = trace_kernels(json.load(f)["traceEvents"])
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, "-c", "import chip_smoke; chip_smoke.trace_child()"],
+                           capture_output=True, text=True, timeout=600,
+                           cwd=Path(__file__).resolve().parent)
+    lines = child.stdout.strip().splitlines()
+    got = json.loads(lines[-1]) if child.returncode == 0 and lines else {}
+    named = got.get("kernels", {})
+    check("trace", got.get("launches") == [1, 1] and got.get("events", 0) > 0
+          and all(len(named.get(k, [])) == 1 for k in ("fused_features", "fused_tier_features")),
+          f"profiling.trace in a fresh process over one HIGH and one DEFAULT compute_batch "
+          f"(rc {child.returncode}, {time.perf_counter() - t0:.1f} s): "
+          f"{got.get('bytes')} bytes, {got.get('events')} events; "
+          + "; ".join(f"{k}: (stream, us) {v}" for k, v in named.items())
+          + f"; launches counted f32/tier {got.get('launches')} | in this process the same "
+          f"trace names {here}" + ("" if child.returncode == 0 else
+                                     f" | child stderr: {child.stderr.strip()[-600:]}"))
+
+    # ---- 12d. interop: to_torch, to_jax ------------------------------------------
+    res, launches = counted(lambda: plans["HIGH"].compute(xb[0]))
+    t = tgt.to_torch(res)
+    wrapped = res.to_torch(with_metadata=True)
+    host = tgt.to_torch(res, device="cpu", dtype="float64")
+    j = tgj.to_jax(res)
+    dl_type, dl_id = j.__dlpack_device__()
+    stacked = tgt.batch([res, res])
+    ok = (launches == (1, 0) and t.is_cuda and t.data_ptr() == res.data.data_ptr()
+          and wrapped.tensor.data_ptr() == res.data.data_ptr()
+          and wrapped.db_range == res.db_range() and host.dtype == torch.float64
+          and torch.equal(host, res.data.double().cpu()) and int(dl_type) == 2
+          and dl_id == dev.index and j.data_ptr() == res.data.data_ptr()
+          and stacked.is_cuda and tuple(stacked.shape) == (2,) + tuple(res.data.shape))
+    check("interop", ok,
+          f"to_torch of a CUDA Spectrogram {tuple(res.data.shape)}: same data_ptr "
+          f"{t.data_ptr() == res.data.data_ptr()}, with metadata db_range {wrapped.db_range}; "
+          f"to_torch(device='cpu', dtype='float64') exact; to_jax's __dlpack_device__ "
+          f"({int(dl_type)}, {dl_id}) (2 = kDLCUDA); batch {tuple(stacked.shape)} on "
+          f"{stacked.device}; launches f32/tier {launches[0]}/{launches[1]}")
+
+    # ---- 12e. the native library's build entry ------------------------------------
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "spectrograms_tpu_torch.runtime.build"],
+                         capture_output=True, text=True, timeout=300)
+    check("runtime.build", out.returncode == 0 and out.stdout.startswith("built "),
+          f"python -m spectrograms_tpu_torch.runtime.build: rc {out.returncode} in "
+          f"{time.perf_counter() - t0:.2f} s: {out.stdout.strip() or out.stderr.strip()[-300:]}")
+    print(f"[12 phase] {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs one GPU")
@@ -2387,6 +2612,7 @@ def main() -> None:
     config4_phase(tg, ff, dev, card)
     fft_image_phase(tg, ff, dev, card)
     tuning_parallel_phase(tg, ff, dev, card, phase7_rates)
+    profiling_phase(tg, ff, dev, card, tier_bound)
 
     print(json.dumps({"kernels": [{
         "name": "fused_features",

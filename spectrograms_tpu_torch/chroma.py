@@ -322,5 +322,19 @@ def compute_chromagram(
     dtype=None,
     device=None,
 ) -> Chromagram:
-    """One-shot chromagram (the JAX package's ``compute_chromagram``)."""
+    """One-shot chromagram (the JAX package's ``compute_chromagram``).
+
+    Examples
+    --------
+    A pure A4 (440 Hz) concentrates its energy in pitch class A (index 9):
+
+    >>> import numpy as np
+    >>> from spectrograms_tpu_torch import StftParams, compute_chromagram
+    >>> x = np.sin(2 * np.pi * 440 * np.arange(44100) / 44100)
+    >>> ch = compute_chromagram(x, StftParams(4096, 1024), 44100.0, device="cpu")
+    >>> ch.data.shape[0]
+    12
+    >>> int(ch.data.mean(dim=1).argmax())
+    9
+    """
     return chromagram(samples, stft_params, sample_rate, chroma_params, dtype, device)

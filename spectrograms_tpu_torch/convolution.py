@@ -53,7 +53,15 @@ def _signals(a, b, dtype, device, what: str):
 
 
 def fft_convolve(a, b, dtype=None, device=None) -> torch.Tensor:
-    """Linear convolution via FFT; output length ``len(a)+len(b)−1``."""
+    """Linear convolution via FFT; output length ``len(a)+len(b)−1``.
+
+    Examples
+    --------
+    >>> from spectrograms_tpu_torch import fft_convolve
+    >>> y = fft_convolve([1.0, 2.0, 3.0], [1.0, 1.0], device="cpu")
+    >>> [round(v, 6) for v in y.tolist()]
+    [1.0, 3.0, 5.0, 3.0]
+    """
     xa, xb = _signals(a, b, dtype, device, "fft_convolve")
     out_len = xa.shape[0] + xb.shape[0] - 1
     n_fft = next_power_of_two(out_len)

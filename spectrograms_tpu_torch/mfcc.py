@@ -306,7 +306,18 @@ def compute_mfcc(
     dtype=None,
     device=None,
 ) -> Mfcc:
-    """One-shot MFCC (the JAX package's ``compute_mfcc``)."""
+    """One-shot MFCC (the JAX package's ``compute_mfcc``).
+
+    Examples
+    --------
+    >>> import numpy as np
+    >>> from spectrograms_tpu_torch import MfccParams, StftParams, compute_mfcc
+    >>> x = np.sin(2 * np.pi * 440 * np.arange(16000) / 16000)
+    >>> m = compute_mfcc(x, StftParams(512, 256), 16000.0, n_mels=40,
+    ...                  mfcc_params=MfccParams(n_mfcc=13), device="cpu")
+    >>> tuple(m.data.shape)
+    (13, 63)
+    """
     return mfcc(samples, stft_params, sample_rate, n_mels, mfcc_params, dtype, device)
 
 

@@ -357,9 +357,12 @@ def _kernel_device(device) -> torch.device:
     return dev
 
 
-def _runner(dev, plain, launch, source):
+def _runner(dev, plain, launch, source, **work):
     """The runner of a factory: plain version on a CPU tensor, else the
-    kernel of ``csrc/<source>.cu`` (``run.source``)."""
+    kernel of ``csrc/<source>.cu`` (``run.source``). ``work`` (the f64
+    ``mapping`` and ``dct``, ``pre_amp``, and for the tier kernel its
+    ``precision`` and ``gauss`` form) rides along as attributes, for the
+    cost model (``profiling.plan_cost``)."""
 
     def run(x):
         if x.dtype != torch.float32:
@@ -377,6 +380,7 @@ def _runner(dev, plain, launch, source):
         return launch(x.contiguous())
 
     run.source = source
+    run.__dict__.update(work)
     return run
 
 
@@ -505,7 +509,7 @@ def fused_factored_features(
             x, window_t, mapping_t, amp, floor_db, pre_amp, dct_t, centre, n_fft, hop
         )
 
-    run = _runner(dev, plain, launch, "fused_features")
+    run = _runner(dev, plain, launch, "fused_features", mapping=fb, dct=dct, pre_amp=pre_amp)
     if dev.type == "cuda":
         run.launch, run.tile_f = launch, tile
     return run
@@ -627,7 +631,8 @@ def fused_tier_features(
     def plain(x):
         return fused_tier_features_reference(x, consts, amp, floor_db, pre_amp, centre, hop)
 
-    run = _runner(dev, plain, launch, "fused_tier_features")
+    run = _runner(dev, plain, launch, "fused_tier_features", mapping=fb, dct=dct,
+                  pre_amp=pre_amp, precision=precision, gauss=gauss)
     if dev.type == "cuda":
         run.launch, run.tile_f = launch, tile
     return run

@@ -55,6 +55,18 @@ def batch(spectrograms: List, device=None, dtype=None, pad: bool = False) -> tor
     return torch.stack(arrays)
 
 
+def result_metadata(result) -> dict:
+    """A result's ``frequencies`` and ``times`` (host numpy), ``params``
+    and ``db_range()``; None for what it lacks."""
+    db_range = getattr(result, "db_range", None)
+    return {
+        "frequencies": np.asarray(result.frequencies) if hasattr(result, "frequencies") else None,
+        "times": np.asarray(result.times) if hasattr(result, "times") else None,
+        "params": getattr(result, "params", None),
+        "db_range": db_range() if callable(db_range) else None,
+    }
+
+
 def batch_with_metadata(
     spectrograms: List, device=None, dtype=None, pad: bool = False
 ) -> Tuple[torch.Tensor, List[dict]]:

@@ -21,6 +21,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..dtypes import resolve_device
 from ..errors import InvalidInputError
 
 __all__ = ["create_device_mesh", "make_named_sharding", "initialize_distributed"]
@@ -37,10 +38,12 @@ def _world() -> Tuple[int, int]:
 
 
 def local_devices() -> list:
-    """The devices this process drives: every visible card, else the CPU."""
-    if torch.cuda.is_available():
-        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    return [torch.device("cpu")]
+    """The devices this process drives: every visible card. Raises, as
+    ``resolve_device`` does, when none is visible: a CPU mesh is asked for
+    by name (``devices=["cpu"] * n``)."""
+    if not torch.cuda.is_available():
+        resolve_device()  # raises: no card is visible
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
 def _indexed(dev: torch.device) -> torch.device:
@@ -118,8 +121,8 @@ def create_device_mesh(
     utterance lanes) or a 2-D ``('data', 'time')`` mesh when long signals
     are also sharded over the frame axis. ``devices`` is the global list of
     entries (``torch.device`` or strings; repeats allowed); by default every
-    process's cards (the CPU where there is none), assuming each process of
-    a ``torch.distributed`` group drives as many. Entries belong to the
+    process's cards, assuming each process of a ``torch.distributed`` group
+    drives as many (raises when no card is visible). Entries belong to the
     processes in contiguous equal blocks, in rank order.
     """
     world = _world()[1]

@@ -139,6 +139,17 @@ class FeaturePipeline:
     >>> for batch in pipe.run(paths):                                     # doctest: +SKIP
     ...     train_step(batch.masked())
 
+    On the host, two decoded clips of 1 s and 0.5 s in one batch:
+
+    >>> import numpy as np
+    >>> import spectrograms_tpu_torch as tg
+    >>> plan = tg.MelDbPlan(tg.SpectrogramParams(tg.StftParams(512, 128), 16000.0),
+    ...                     tg.MelParams(40, 0.0, 8000.0), tg.LogParams(-80.0), device="cpu")
+    >>> clips = [np.zeros(16000, np.float32), np.zeros(8000, np.float32)]
+    >>> pipe = FeaturePipeline(plan, batch_size=2, target_seconds=1.0)
+    >>> [(tuple(b.masked().shape), b.lengths.tolist()) for b in pipe.run_arrays(clips, 16000.0)]
+    [((2, 40, 126), [16000, 8000])]
+
     ``transport``: ``"float32"``; ``"int16"`` ships raw PCM (half the
     bytes) and dequantizes on the card with the exact ``x·(1/32768)``,
     bit-equal to float32 for PCM16 sources; ``"ulaw"`` ships one byte a

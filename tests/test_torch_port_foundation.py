@@ -8,6 +8,7 @@ the CPU.
 """
 
 import ast
+import pkgutil
 import subprocess
 import sys
 from pathlib import Path
@@ -259,9 +260,26 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 def test_port_import_loads_no_jax():
     code = (
         "import sys, chip_smoke, spectrograms_tpu_torch, spectrograms_tpu_torch.convert, "
-        "spectrograms_tpu_torch.ops._build\n"
+        "spectrograms_tpu_torch.ops._build, spectrograms_tpu_torch.profiling, "
+        "spectrograms_tpu_torch.torch, spectrograms_tpu_torch.jax, "
+        "spectrograms_tpu_torch.runtime.build\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'spectrograms_tpu')]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
+# The port's counterpart of each JAX module of another name: the Pallas
+# kernel's module became the CUDA kernels' wrappers.
+RENAMED_MODULES = {"ops.pallas_factored": "ops.fused_factored"}
+
+
+def test_port_has_every_submodule_of_the_jax_package():
+    def walk(pkg):
+        prefix = pkg.__name__ + "."
+        return {m.name[len(prefix):] for m in pkgutil.walk_packages(pkg.__path__, prefix)}
+
+    theirs = {RENAMED_MODULES.get(m, m) for m in walk(sg)}
+    missing = theirs - walk(tg)
+    assert not missing, sorted(missing)

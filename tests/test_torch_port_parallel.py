@@ -63,7 +63,7 @@ def collectives(monkeypatch):
     return calls
 
 
-def test_mesh_creation():
+def test_mesh_creation(monkeypatch):
     m = mesh(8)
     assert m.shape["data"] == 8 and m.devices.size == 8 and m.size == 8
     m2 = create_device_mesh((4, 2), ("data", "time"), devices=["cpu"] * 8)
@@ -75,9 +75,15 @@ def test_mesh_creation():
             m_.parallel.create_device_mesh((16,), ("data",), **kw)
         with pytest.raises(m_.InvalidInputError, match="same length"):
             m_.parallel.create_device_mesh((2, 2), ("data",), **kw)
-    # the default: this process's devices (the CPU here), one process
+    # the default: this process's cards; without one it raises (never a CPU mesh)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(tg.InvalidInputError, match="CUDA is not available"):
+        create_device_mesh((1,))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     d = create_device_mesh((1,))
-    assert d.devices[0] == torch.device("cpu") and d.is_local()
+    assert d.devices[0] == torch.device("cuda", 0) and d.is_local()
+    monkeypatch.undo()
     assert m == mesh(8) and hash(m) == hash(mesh(8)) and m != mesh(4)
     s = make_named_sharding(m, ("data",))
     assert s.mesh is m and tuple(s.spec) == ("data",)

@@ -271,3 +271,22 @@ def test_new_modules_load_no_jax():
             "'spectrograms_tpu')]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
+def test_build_entry_point_rebuilds_and_prints_the_path(tmp_path, monkeypatch, capsys):
+    # ``python -m spectrograms_tpu_torch.runtime.build``, with its build sent
+    # to a temporary directory
+    import runpy
+
+    real = tnative.build_library
+    calls = []
+
+    def build(force=False):
+        calls.append(force)
+        return real(force=force, build_dir=tmp_path)
+
+    monkeypatch.setattr(tnative, "build_library", build)
+    runpy.run_module("spectrograms_tpu_torch.runtime.build", run_name="__main__")
+    so = tnative.library_path(tmp_path)
+    assert calls == [True] and so.exists()
+    assert capsys.readouterr().out.strip() == f"built {so}"
