@@ -28,21 +28,17 @@ import torch
 from .errors import InvalidInputError
 
 __all__ = [
-    "DEFAULT_DTYPE",
-    "Precision",
     "parse_dtype",
+    "complex_dtype",
+    "DEFAULT_DTYPE",
+    "ensure_x64",
+    "ensure_plan_dtype",
+    "to_numpy_safe",
+    "real_dtype_name",
+    "dlpack_export",
     "set_default_dtype",
     "get_default_dtype",
-    "complex_dtype",
-    "ensure_x64",
-    "dlpack_export",
-    "numpy_dtype",
-    "ensure_plan_dtype",
-    "real_dtype_name",
-    "resolve_device",
-    "check_true_f32",
-    "check_precision",
-    "result_data",
+    "Precision",
 ]
 
 # The framework default, as in the JAX package (the reference crate's is f64).
@@ -137,6 +133,15 @@ def ensure_plan_dtype(dtype) -> None:
     """Plans compute in float32 or float64 only (as in the JAX package)."""
     if dtype not in (torch.float32, torch.float64):
         raise InvalidInputError(f"plans compute in float32/float64, got {dtype}")
+
+
+def to_numpy_safe(arr):
+    """A host numpy copy of a torch tensor (detached; complex tensors copy
+    as they are), or ``np.asarray(arr)`` of anything else, as in the JAX
+    package."""
+    if isinstance(arr, torch.Tensor):
+        return arr.detach().resolve_conj().resolve_neg().to("cpu", copy=True).numpy()
+    return np.asarray(arr)
 
 
 def real_dtype_name(dtype) -> str:

@@ -22,14 +22,7 @@ import threading
 from pathlib import Path
 from typing import Optional
 
-__all__ = [
-    "NativeUnavailable",
-    "native_available",
-    "load_library",
-    "build_library",
-    "library_path",
-    "BUILD_DIR",
-]
+__all__ = ["NativeUnavailable", "native_available", "load_library", "build_library"]
 
 _SRC = Path(__file__).resolve().parents[2] / "native" / "sgtpu.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "spectrograms_tpu_torch"
@@ -37,28 +30,31 @@ _CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-fvisibility=hidden", "-
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_load_failed = False
 
 
 class NativeUnavailable(RuntimeError):
     """The sgtpu native library cannot be built or loaded."""
 
 
-def library_path(build_dir: Optional[Path] = None) -> Path:
-    """Where the library of the current source and flags is built."""
+def library_path() -> Path:
+    """Where the library of the current source and flags is built, in
+    ``BUILD_DIR``."""
     if not _SRC.exists():
         raise NativeUnavailable(f"native source not found: {_SRC}")
     digest = hashlib.sha256(_SRC.read_bytes() + " ".join(_CXX_FLAGS).encode()).hexdigest()[:16]
-    return Path(build_dir or BUILD_DIR) / f"libsgtpu_{digest}.so"
+    return BUILD_DIR / f"libsgtpu_{digest}.so"
 
 
-def build_library(force: bool = False, build_dir: Optional[Path] = None) -> Path:
-    """Compile ``native/sgtpu.cpp`` with ``g++`` unless it is built already.
+def build_library(force: bool = False) -> Path:
+    """Compile ``native/sgtpu.cpp`` with ``g++`` into ``BUILD_DIR`` unless
+    it is built already.
 
-    Safe across processes: the build holds ``<build_dir>/libsgtpu.lock``,
+    Safe across processes: the build holds ``BUILD_DIR/libsgtpu.lock``,
     writes a temporary file and renames it, so a reader sees either no
     library or a whole one.
     """
-    so = library_path(build_dir)
+    so = library_path()
     if so.exists() and not force:
         return so
     so.parent.mkdir(parents=True, exist_ok=True)
@@ -116,20 +112,31 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def load_library() -> ctypes.CDLL:
+def load_library(build_if_missing: bool = True) -> ctypes.CDLL:
     """Load the native library, building it on first use.
 
     Raises :class:`NativeUnavailable` when it cannot be built or loaded.
+    With ``build_if_missing=False`` nothing is built: a library that is not
+    built yet raises, and so does every call after a failed load.
     """
-    global _lib
+    global _lib, _load_failed
     with _lock:
-        if _lib is None:
-            path = build_library()
-            try:
-                _lib = _bind(ctypes.CDLL(str(path)))
-            except OSError as e:
-                raise NativeUnavailable(str(e)) from e
-        return _lib
+        if _lib is not None:
+            return _lib
+        if _load_failed and not build_if_missing:
+            raise NativeUnavailable("native library previously failed to load")
+        try:
+            if build_if_missing:
+                path = build_library()
+            else:
+                path = library_path()
+                if not path.exists():
+                    raise NativeUnavailable(f"{path.name} not built")
+            _lib = _bind(ctypes.CDLL(str(path)))
+            return _lib
+        except (OSError, NativeUnavailable) as e:
+            _load_failed = True
+            raise NativeUnavailable(str(e)) from e
 
 
 def native_available() -> bool:

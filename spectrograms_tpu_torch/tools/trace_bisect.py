@@ -1,76 +1,80 @@
-"""Where in a long-lived process does ``torch.profiler`` stop recording kernels?
+"""Does ``profiling.trace`` keep its kernel records across an idle gap?
 
-Runs ``chip_smoke.py``'s ``main`` (one H100, from the repository root) with
-a probe before and after each of its phases 7-11 and in place of phase 12:
-config 2's HIGH plan on a (4, 16000) batch and a 64x64 matmul, one call each
-inside ``profiling.trace``, then prints the kernels the trace names.
+Starts one process of its own, with ``KINETO_LOG_LEVEL=0`` so that Kineto
+logs its record counts (among them the records it dropped as outside the
+trace's window). That process runs one probe, sleeps ``--gap`` seconds,
+then runs two more. A probe is one ``profiling.trace`` over one
+``compute_batch`` of config 2's mel-dB plan at HIGH (the f32 kernel) and at
+DEFAULT (the tier kernel) on a (4, 16000) batch and a 64x64 matmul; it
+prints the kernel launches the trace holds and those whose kernel it lost.
+Run from the repository root on one H100:
 
-    python3 -m spectrograms_tpu_torch.tools.trace_bisect [--shared-cudart] [--pad S]
-
-``--shared-cudart`` builds the kernels against the shared CUDA runtime;
-``--pad S`` sleeps S seconds inside the trace before and after the calls.
+    python3 -m spectrograms_tpu_torch.tools.trace_bisect [--gap 75]
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import subprocess
+import sys
 import tempfile
 import time
 
 import torch
 
 
-def probe(label: str, pad: float) -> None:
+def probe(label: str) -> None:
+    """One trace of the probe's calls, printed as one PROBE line."""
     import spectrograms_tpu_torch as tg
     from spectrograms_tpu_torch import profiling
+    from spectrograms_tpu_torch.errors import FftBackendError
 
-    plan = tg.MelDbPlan(tg.SpectrogramParams(tg.StftParams(1024, 256), 16000.0),
-                        tg.MelParams(128, 0.0, 8000.0, tg.MelNorm.SLANEY), tg.LogParams(-80.0),
-                        dtype="float32")
+    params = tg.SpectrogramParams(tg.StftParams(1024, 256), 16000.0)
+    mel = tg.MelParams(128, 0.0, 8000.0, tg.MelNorm.SLANEY)
+    plans = [tg.MelDbPlan(params, mel, tg.LogParams(-80.0), dtype="float32", **kw)
+             for kw in ({}, dict(precision=tg.Precision.DEFAULT))]
     xb = torch.randn(4, 16000, device="cuda")
     a = torch.randn(64, 64, device="cuda")
-    plan.compute_batch(xb)
+    for plan in plans:
+        plan.compute_batch(xb)
     torch.cuda.synchronize()
+    raised = ""
     with tempfile.TemporaryDirectory() as tmp:
-        with torch.no_grad(), profiling.trace(tmp) as tr:
-            time.sleep(pad)
-            plan.compute_batch(xb)
-            a @ a
-            torch.cuda.synchronize()
-            time.sleep(pad)
+        tr = profiling.trace(tmp)
+        try:
+            with torch.no_grad(), tr:
+                for plan in plans:
+                    plan.compute_batch(xb)
+                a @ a
+        except FftBackendError as e:
+            raised = f" | trace raised: {str(e)[:160]}"
         with open(tr.path) as f:
-            events = json.load(f)["traceEvents"]
-    kernels = sorted({e["name"][:60] for e in events if e.get("cat") == "kernel"})
-    launches = [e["name"] for e in events if e.get("cat") == "cuda_runtime" and "aunch" in e["name"]]
-    print(f"PROBE {label}: {len(events)} events; kernels {kernels}; launches {launches}",
-          flush=True)
+            launches, lost = profiling.lost_kernels(json.load(f)["traceEvents"])
+    print(f"PROBE {label}: launches {launches}; lost {lost}{raised}", flush=True)
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--shared-cudart", action="store_true")
-    ap.add_argument("--pad", type=float, default=0.0)
+    ap.add_argument("--gap", type=float, default=75.0)
+    ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
-    import chip_smoke
-    from spectrograms_tpu_torch.ops import _build
-
-    if args.shared_cudart:
-        _build.NVCC_FLAGS = _build.NVCC_FLAGS + ("-cudart", "shared")
-
-    def wrapped(fn, label):
-        def run(*a, **k):
-            probe(f"before {label}", args.pad)
-            out = fn(*a, **k)
-            probe(f"after {label}", args.pad)
-            return out
-        return run
-
-    for name, label in (("serving_phase", "7"), ("surface_phase", "8"), ("config4_phase", "9"),
-                        ("fft_image_phase", "10"), ("tuning_parallel_phase", "11")):
-        setattr(chip_smoke, name, wrapped(getattr(chip_smoke, name), label))
-    chip_smoke.profiling_phase = lambda *a, **k: probe("in place of 12", args.pad)
-    chip_smoke.main()
+    if args.child:
+        probe("first")
+        time.sleep(args.gap)
+        probe(f"after {args.gap:g} s idle")
+        probe("again")
+        return
+    child = subprocess.run(
+        [sys.executable, "-m", "spectrograms_tpu_torch.tools.trace_bisect", "--child",
+         "--gap", str(args.gap)],
+        capture_output=True, text=True, env=dict(os.environ, KINETO_LOG_LEVEL="0"))
+    print(child.stdout, end="")
+    for line in child.stderr.splitlines():
+        if "Record counts" in line or "Out-of-range" in line or "Error" in line:
+            print("stderr: " + line[:300])
+    sys.exit(child.returncode)
 
 
 if __name__ == "__main__":

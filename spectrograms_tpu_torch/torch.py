@@ -20,7 +20,8 @@ from .chroma import Chromagram
 from .cqt import CqtResult
 from .dtypes import result_data
 from .mfcc import Mfcc
-from .parallel.batching import batch, batch_with_metadata, result_metadata
+from .parallel import batching as _batching
+from .parallel.batching import result_metadata
 from .pipeline import Spectrogram, StftResult
 
 __all__ = ["to_torch", "batch", "batch_with_metadata", "TorchSpectrogram"]
@@ -66,6 +67,18 @@ def to_torch(result, device=None, dtype=None, with_metadata: bool = False):
     if not with_metadata:
         return t
     return TorchSpectrogram(t, **result_metadata(result))
+
+
+def batch(results, device=None, dtype=None, pad: bool = False) -> torch.Tensor:
+    """Stack result objects into one (B, n_bins, n_frames) tensor on
+    ``device`` (CUDA unless ``device="cpu"``); ``pad=True`` pads ragged
+    shapes with zeros."""
+    return _batching.batch(results, device=device, dtype=dtype, pad=pad)
+
+
+def batch_with_metadata(results, device=None, dtype=None, pad: bool = False):
+    """:func:`batch` and the per-item metadata list."""
+    return _batching.batch_with_metadata(results, device=device, dtype=dtype, pad=pad)
 
 
 def _patch():

@@ -232,13 +232,14 @@ _BUILD = """
 import sys
 from pathlib import Path
 from spectrograms_tpu_torch.runtime import native
-so = native.build_library(build_dir=Path(sys.argv[1]))
+native.BUILD_DIR = Path(sys.argv[1])
+so = native.build_library()
 lib = native._bind(__import__("ctypes").CDLL(str(so)))
 print(so.name, lib.sg_framer_new(512, 128, 4096) != 0)
 """
 
 
-def test_two_processes_build_the_native_library_at_once(tmp_path):
+def test_two_processes_build_the_native_library_at_once(tmp_path, monkeypatch):
     procs = [subprocess.Popen([sys.executable, "-c", _BUILD, str(tmp_path)], cwd=REPO,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for _ in range(2)]
@@ -249,7 +250,8 @@ def test_two_processes_build_the_native_library_at_once(tmp_path):
     assert len(names) == 1 and all(out.split()[1] == "True" for out, _ in outs)
     built = sorted(f.name for f in tmp_path.iterdir())
     assert built == sorted([names.pop(), "libsgtpu.lock"])  # no temporary file left
-    assert tnative.library_path(tmp_path).exists()
+    monkeypatch.setattr(tnative, "BUILD_DIR", tmp_path)
+    assert tnative.library_path().exists()
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
@@ -283,10 +285,11 @@ def test_build_entry_point_rebuilds_and_prints_the_path(tmp_path, monkeypatch, c
 
     def build(force=False):
         calls.append(force)
-        return real(force=force, build_dir=tmp_path)
+        return real(force=force)
 
+    monkeypatch.setattr(tnative, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(tnative, "build_library", build)
     runpy.run_module("spectrograms_tpu_torch.runtime.build", run_name="__main__")
-    so = tnative.library_path(tmp_path)
+    so = tnative.library_path()
     assert calls == [True] and so.exists()
     assert capsys.readouterr().out.strip() == f"built {so}"
