@@ -123,7 +123,25 @@ beside this run's:
    stream; ``to_torch`` (same storage) and ``to_jax`` (a CUDA DLPack
    device) of a CUDA result; ``python -m
    spectrograms_tpu_torch.runtime.build``;
-13. the ``kernels`` JSON line, the card line, and the result line
+13. both kernels over the domain ``supports_factored_fusion`` admits
+   (``kernel_domain_phase``, ~7-10 s): 24 plans drawn from their own seed
+   (``P13_SEED``) as ``tests/test_equivalence_sweep.py`` draws them, with
+   ``n_fft`` 256 to 4096 each at hop 1 and at hop = ``n_fft``, then hops
+   log-uniform in [1, ``n_fft``], the sweep's six windows and sample rates,
+   ``centre`` on and off, linear, mel, log-Hz, ERB, chroma and MFCC
+   mappings at power, magnitude and dB, batches of 1, 3 and 8 and lengths
+   from below ``n_fft`` to 10 s (1 s at hop 1; every plain version's
+   frames capped at ``P13_MAX_FRAME_FLOATS``); each plan through
+   ``compute_batch`` at ``HIGH`` (the f32 kernel; ``auto``, or
+   ``pallas`` for a linear plan), ``DEFAULT`` (Gauss), ``pallas:dif`` at
+   ``DEFAULT`` (packed) and ``pallas:x2``, the counters showing the one
+   kernel launched; each kernel against its plain version on the card
+   and the plan against the ``fft`` route (the limits in the note above
+   ``P13_SEED``); then ``tests/test_boundaries.py``'s cases (one frame, one
+   sample, hop 1, hop = ``n_fft``, one mel band, silence at the -100 dB
+   floor) on both kernels against the same plan on the CPU; one line a
+   case with its tile, and a count of the cases that held;
+14. the ``kernels`` JSON line, the card line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero, printing no result, when CUDA is unavailable. Imports
@@ -269,6 +287,32 @@ def twin_err(out, ref, kind: str):
     reading = float((excess / ref.abs()).nan_to_num(nan=0.0, posinf=math.inf).max())
     return (reading, TWIN_RTOL, reading <= TWIN_RTOL,
             f"rtol needed at atol {TWIN_ATOL:g}*max|ref|")
+
+
+# The f32 kernel against its plain version (phases 3 and 13), on each
+# output's own scale: (max|err|, ok, what the limit is).
+def db_tol(out, ref):
+    # Both sides f32; they differ in summation order only (the kernel's
+    # radix-8 passes vs cuFFT, loops vs GEMM): ~1e-6 relative in power,
+    # ~5e-6 dB. 1e-3 dB leaves margin and still fails any wrong bin.
+    err = float((out - ref).abs().max())
+    return err, err <= 1e-3, "atol 1e-3 dB"
+
+
+def mfcc_tol(out, ref):
+    # The DCT sums 128 dB values of magnitude ~1e2 into coefficients up
+    # to ~1e4: an absolute error relative to the largest coefficient.
+    err, limit = float((out - ref).abs().max()), 1e-4 * float(ref.abs().max())
+    return err, err <= limit, f"atol {limit:.3e} (1e-4*max|ref|)"
+
+
+def power_tol(out, ref):
+    # rtol 1e-4. Near-empty bins carry the FFT's rounding of the whole
+    # frame's energy, not of their own, so they get an atol of
+    # 1e-7·max|ref| (the f32 rounding floor of the largest bin).
+    excess = (out - ref).abs() - 1e-4 * ref.abs() - 1e-7 * float(ref.abs().max())
+    err = float((out - ref).abs().max())
+    return err, float(excess.max()) <= 0.0, "rtol 1e-4 + atol 1e-7*max|ref|"
 
 
 def split16(t):
@@ -2100,6 +2144,307 @@ def profiling_phase(tg, ff, dev, card, tier_bound, batch: int = 32,
     print(f"[12 phase] {time.perf_counter() - t_phase:.1f} s")
 
 
+# Phase 13: both kernels over the domain that supports_factored_fusion
+# admits (n_fft = 128·2^k in 256..4096, any hop <= n_fft), drawn as
+# tests/test_equivalence_sweep.py draws its plans, with its windows,
+# and each plan run at HIGH, DEFAULT (Gauss), pallas:dif at DEFAULT (the
+# packed product) and pallas:x2. Against the kernel's plain version at
+# phase 3's limits (mfcc_tol, power_tol; TWIN_* for the tier), and
+# against the fft route at the sweep's limits for the f32 kernel (3e-2 dB,
+# 5e-3*max|ref|; MFCC and chroma at phase 4's 5e-3*max|ref|) and at
+# TIER_LIMITS / MFCC_TIER_LIMITS for the tier.
+#
+# dB outputs of the f32 kernel: each element within phase 3's 1e-3 dB
+# against its plain version (3e-2 dB against fft), or within the f32
+# rounding floor in power, 1e-7 of the batch's largest power (power_tol's
+# atol). An identity mapping in dB shows single bins that lie 100 dB and
+# more below their frame's peak: their value is the FFT's rounding of the
+# frame's energy, so two f32 FFTs that sum in other orders part there by
+# dB. The kernel's own decomposition in f32 on the CPU
+# (f32_layout.fused_features_twin) reads 1.7e-2 dB against the plain
+# version on this sweep's case 06 (a Blackman window, linear dB), while
+# every mel, log-Hz and ERB case stays within 1e-3 dB.
+#
+# The tier's own rounding (its plain version, the JAX tier's factorization
+# and rounding points) can read above TIER_LIMITS against fft on the
+# sweep's geometries: the bf16 rounding of the outer DFT's input scales
+# with the frame's energy, and TIER_LIMITS were set relative to the
+# output's largest value where the mapping reads the frame's loud bins
+# (mel power over the tones). Where the plain version reads above them, the
+# kernel is held to P13_TIER_OVER times the plain version's error, and the
+# line says so.
+#
+# The 1-pass tier's power, magnitude and chroma outputs against its plain
+# version: TWIN_RTOL (2e-3) was set on mel and ERB rows, which sum many
+# bins. Where a row reads one or two bins (an identity mapping, a log-Hz row
+# at low frequencies, a chroma row under a tone), one flipped bf16 rounding
+# of a bin's power (the filterbank product's operand) moves the row by up
+# to one bf16 unit, 2^-7 of its value; flips in several bins of a row with
+# non-negative weights move it by at most as much. So the 1-pass tier's
+# rtol there is 2^-7 (an H100 80GB HBM3 at 700 W read 7.73e-3 on an
+# identity mapping, 2.45e-3 on chroma). At x2 the tail's third product
+# corrects the rounding and TWIN_RTOL stays.
+P13_DB_FLOOR = 1e-7
+P13_TIER_OVER = 1.25
+P13_FLIP_RTOL = 2.0 ** -7
+P13_SEED = SEED + 13
+P13_N_FFTS = (256, 512, 1024, 2048, 4096)
+P13_SRS = (8000.0, 16000.0, 22050.0, 44100.0)
+P13_WINDOWS = ("hann", "hamming", "blackman", "kaiser=6.5", "gaussian=0.4", "rect")
+P13_KINDS = ("linear", "mel", "loghz", "erb", "chroma", "mfcc")
+P13_FFT_DB, P13_FFT_REL = 3e-2, 5e-3
+# the plain versions materialize every frame: batch * frames * n_fft at most
+P13_MAX_FRAME_FLOATS = 1.5e8
+
+
+def domain_cases(rng, n_plans: int = 24) -> list:
+    """The sweep's plans: n_fft at hop 1 and at hop = n_fft first (so that
+    both kernels run both ends of the hop range at every n_fft), then hops
+    drawn log-uniform in [1, n_fft]; each block of six takes every window
+    and every mapping once, in a drawn order; two signals shorter than
+    n_fft (centre on and off) follow the fixed hops."""
+    cases = []
+    for i in range(n_plans):
+        if i % 6 == 0:
+            windows, kinds = rng.permutation(6), rng.permutation(6)
+        if i < 2 * len(P13_N_FFTS):
+            n_fft = P13_N_FFTS[i // 2]
+            hop = 1 if i % 2 == 0 else n_fft
+        else:
+            n_fft = int(rng.choice(P13_N_FFTS))
+            hop = int(min(n_fft, max(1, round(math.exp(rng.uniform(0.0, math.log(n_fft)))))))
+        sr = float(rng.choice(P13_SRS))
+        kind = P13_KINDS[kinds[i % 6]]
+        amp = "db" if kind == "mfcc" else str(rng.choice(["power", "magnitude", "db"]))
+        batch = int(rng.choice([1, 3, 8]))
+        centre = bool(rng.integers(0, 2))
+        if i in (10, 11):
+            n, centre = int(rng.integers(n_fft // 4, n_fft)), i == 10
+        else:
+            top = 16000 if hop == 1 else 160000
+            n = int(math.exp(rng.uniform(math.log(n_fft // 3), math.log(top))))
+        n = max(1, min(n, int(P13_MAX_FRAME_FLOATS * hop / (batch * n_fft))))
+        cases.append(dict(
+            n_fft=n_fft, hop=hop, sr=sr, window=P13_WINDOWS[windows[i % 6]], centre=centre,
+            kind=kind, amp=amp, batch=batch, n=n,
+            n_bands=int(rng.integers(8, 96)),
+            f_min=float(rng.uniform(0.0 if kind in ("mel", "mfcc") else 30.0, 300.0)),
+            f_max=float(rng.uniform(sr / 4, sr / 2)),
+            n_mfcc=int(rng.integers(2, 41)), include_c0=bool(rng.integers(0, 2))))
+    return cases
+
+
+def domain_plan(tg, c: dict, dev, **route):
+    """The plan of a sweep case on ``dev`` with ``route`` (method, precision)."""
+    params = tg.SpectrogramParams(tg.StftParams(c["n_fft"], c["hop"], c["window"],
+                                                c["centre"]), c["sr"])
+    kw = dict(dtype="float32", device=dev, **route)
+    db = tg.LogParams(-80.0)
+    if c["kind"] == "mfcc":
+        n_mels = max(c["n_bands"], c["n_mfcc"])
+        return tg.MfccPlan(params.stft, c["sr"],
+                           mel_params=tg.MelParams(n_mels, c["f_min"], c["f_max"],
+                                                   tg.MelNorm.SLANEY),
+                           mfcc_params=tg.MfccParams(min(c["n_mfcc"], n_mels),
+                                                     include_c0=c["include_c0"]),
+                           log_params=db, **kw)
+    if c["kind"] == "chroma":
+        return tg.ChromaPlan(params.stft, c["sr"],
+                             tg.ChromaParams(f_max=min(4186.0, 0.45 * c["sr"])), **kw)
+    amp = {"power": tg.AmpScale.POWER, "magnitude": tg.AmpScale.MAGNITUDE,
+           "db": tg.AmpScale.DECIBELS}[c["amp"]]
+    lo = max(c["f_min"], 20.0)
+    scale = {"linear": (tg.FreqScale.LINEAR, None),
+             "mel": (tg.FreqScale.MEL, tg.MelParams(c["n_bands"], c["f_min"], c["f_max"],
+                                                     tg.MelNorm.SLANEY)),
+             "loghz": (tg.FreqScale.LOG_HZ, tg.LogHzParams(c["n_bands"], lo, c["f_max"])),
+             "erb": (tg.FreqScale.ERB, tg.ErbParams(max(c["n_bands"], 2), lo, c["f_max"]))}
+    fs, sp = scale[c["kind"]]
+    return tg.SpectrogramPlan(params, fs, amp, scale_params=sp,
+                              log_params=db if c["amp"] == "db" else None, **kw)
+
+
+def db_floor_err(out, ref, limit_db: float) -> tuple:
+    """(max|err| dB, the largest over elements above the f32 rounding floor,
+    ok): each element within ``limit_db``, or within ``P13_DB_FLOOR`` of the
+    largest reference power in power."""
+    d = (out - ref).abs()
+    p_ref = 10.0 ** (ref / 10.0)
+    floor = (10.0 ** (out / 10.0) - p_ref).abs() <= P13_DB_FLOOR * float(p_ref.max())
+    above = float(d.masked_fill(floor, 0.0).max())
+    return float(d.max()), above, above <= limit_db
+
+
+def domain_check(ff, plan, x, fft_out, kind: str, prec: str) -> tuple:
+    """Run ``plan`` (a kernel route) on ``x`` through ``compute_batch``
+    with the counters read around it; then its kernel alone against the
+    kernel's plain version on the same inputs, and the plan's output against
+    ``fft_out``. Returns (launches (f32, tier), tile, (reading vs plain,
+    limit, ok, what), (error vs fft, limit, ok), plain's error vs fft)."""
+    run = plan._kernel_run
+    counters = (ff.fused_factored_features, ff.fused_tier_features)
+    before = [c.launches for c in counters]
+    with torch.no_grad():
+        out = plan.compute_batch(x)
+    torch.cuda.synchronize()
+    launches = tuple(c.launches - b for c, b in zip(counters, before))
+    with torch.no_grad():
+        raw, plain = run(x), run.plain(x)
+        # the plain version through the plan's own tail (chroma normalizes)
+        plain_out = (plan._normalize(plain[..., :out.shape[-1]]) if kind == "chroma"
+                     else plain)
+    torch.cuda.synchronize()
+    if prec == "bf16x3":
+        if kind == "db":
+            err, above, ok = db_floor_err(raw, plain, 1e-3)
+            vs_plain = (err, None, ok, f"max|err| dB ({above:.3e} above the f32 rounding "
+                                       f"floor, limit 1e-3)")
+        else:
+            err, ok, what = (mfcc_tol if kind == "mfcc" else power_tol)(raw, plain)
+            vs_plain = (err, None, ok, what)
+
+        def vs(o):
+            if kind == "db":
+                err, above, ok = db_floor_err(o, fft_out, P13_FFT_DB)
+                return err, P13_FFT_DB, ok, f" ({above:.3e} above the rounding floor)"
+            err = float((o - fft_out).abs().max())
+            limit = P13_FFT_REL * float(fft_out.abs().max())
+            return err, limit, err <= limit, ""
+        plain_fft = vs(plain_out)[0]
+        vs_fft = vs(out)
+    else:
+        vs_plain = twin_err(raw, plain, kind if kind in ("db", "mfcc") else "power")
+        if prec == "bf16" and kind not in ("db", "mfcc"):
+            vs_plain = (vs_plain[0], P13_FLIP_RTOL, vs_plain[0] <= P13_FLIP_RTOL, vs_plain[3])
+
+        def vs(o):
+            # magnitude held in the power domain it comes from, as dB is
+            if kind == "magnitude":
+                return tier_err(o * o, fft_out * fft_out, "power", prec)
+            return tier_err(o, fft_out, "power" if kind == "chroma" else kind, prec)
+        plain_fft = vs(plain_out)[0]
+        err, limit, ok = vs(out)
+        note = ""
+        if plain_fft > limit:
+            limit, note = P13_TIER_OVER * plain_fft, (
+                f" (the tier's plain version reads {plain_fft / limit:.2f}x TIER_LIMITS: "
+                f"limit {P13_TIER_OVER:g}x its error)")
+        vs_fft = (err, limit, err <= limit, note)
+    # the plain version against fft: what the tier itself (not the kernel)
+    # gives away
+    return launches, getattr(run, "tile_f", None), vs_plain, vs_fft, plain_fft
+
+
+def kernel_domain_phase(tg, ff, dev, card, n_plans: int = 24) -> None:
+    """Phase 13: the sweep of ``domain_cases`` and the fixed boundary cases
+    of ``tests/test_boundaries.py`` on both kernels (see the module
+    docstring). One line a case; the failures end the phase together."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(P13_SEED)
+    cases = domain_cases(rng, n_plans)
+    # label, tier, method (None: auto, or pallas for a linear plan, which
+    # auto never sends to a kernel), precision
+    routes = (("HIGH", "bf16x3", None, tg.Precision.HIGH),
+              ("DEFAULT", "bf16", None, tg.Precision.DEFAULT),
+              ("dif", "bf16", "pallas:dif", tg.Precision.DEFAULT),
+              ("x2", "bf16x2", "pallas:x2", tg.Precision.HIGH))
+    worst = {}   # (kernel, output kind) -> [largest reading vs plain, vs fft]
+    bad, n_ok, n_run = [], 0, 0
+    for i, c in enumerate(cases):
+        x = torch.from_numpy(signal(rng, c["batch"], c["n"], c["sr"])).to(dev)
+        kind = c["kind"] if c["kind"] in ("mfcc", "chroma") else c["amp"]
+        with torch.no_grad():
+            fft_out = domain_plan(tg, c, dev, method="fft").compute_batch(x)
+        geometry = (f"{c['n_fft']}/{c['hop']} {c['window']} centre={c['centre']} "
+                    f"{c['kind']}{'' if c['kind'] in ('mfcc', 'chroma') else ' ' + c['amp']} "
+                    f"bands {c['n_bands']} sr {c['sr']:g} ({c['batch']}, {c['n']})")
+        for label, prec, method, precision in routes:
+            method = method or ("pallas" if c["kind"] == "linear" else "auto")
+            plan = domain_plan(tg, c, dev, method=method, precision=precision)
+            want = (1, 0) if prec == "bf16x3" else (0, 1)
+            launches, tile, vs_plain, vs_fft, plain_fft = domain_check(ff, plan, x, fft_out,
+                                                                        kind, prec)
+            ok = launches == want and vs_plain[2] and vs_fft[2]
+            n_run += 1
+            n_ok += ok
+            w = worst.setdefault(("f32" if prec == "bf16x3" else "tier", kind), [0.0, 0.0])
+            w[0], w[1] = max(w[0], vs_plain[0]), max(w[1], vs_fft[0] / max(vs_fft[1], 1e-30))
+            lim = "" if vs_plain[1] is None else f" (limit {vs_plain[1]:g})"
+            print(f"[13 domain {i:02d} {label}] {geometry}: "
+                  f"{'f32' if prec == 'bf16x3' else 'tier'} kernel, method {plan.method!r}, "
+                  f"tile {tile}, launches f32/tier {launches[0]}/{launches[1]}; vs plain "
+                  f"{vs_plain[3]} {vs_plain[0]:.3e}{lim}; vs fft max|err| {vs_fft[0]:.3e} "
+                  f"(limit {vs_fft[1]:.3e}){vs_fft[3]}, plain vs fft {plain_fft:.3e} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                bad.append(f"{i:02d} {label}")
+            del plan
+        del x, fft_out
+    n_cases = n_run
+    # tests/test_boundaries.py's cases on the kernel routes (n_fft 256 where
+    # the test's n_fft lies outside the kernels' domain), each against the
+    # same plan on the CPU (the plain version there)
+    sr = 16000.0
+    ones = lambda n: np.ones(n, dtype=np.float32)
+
+    def stft(n_fft, hop, centre=True):
+        return tg.SpectrogramParams(tg.StftParams(n_fft, hop, centre=centre), sr)
+
+    boundary = (
+        ("one frame: 100 samples at 512/128 centre=False", (257, 1),
+         lambda d, **kw: tg.LinearPowerPlan(stft(512, 128, False), device=d, **kw), ones(100)),
+        ("one sample at 256/64", (129, 1),
+         lambda d, **kw: tg.LinearPowerPlan(stft(256, 64), device=d, **kw), ones(1)),
+        ("hop 1: 512 samples at 256/1 centre=False", (129, 257),
+         lambda d, **kw: tg.LinearPowerPlan(stft(256, 1, False), device=d, **kw), ones(512)),
+        ("hop = n_fft: 1024 samples at 256/256", (129, 5),
+         lambda d, **kw: tg.LinearPowerPlan(stft(256, 256), device=d, **kw), ones(1024)),
+        ("one mel band at 256/64", (1, 16),
+         lambda d, **kw: tg.MelPowerPlan(stft(256, 64), tg.MelParams(1, 0.0, 8000.0),
+                                         device=d, **kw), ones(1000)),
+        ("silence at the -100 dB floor, 256/64", (129, 16),
+         lambda d, **kw: tg.LinearDbPlan(stft(256, 64), tg.LogParams(-100.0), device=d, **kw),
+         np.zeros(1000, dtype=np.float32)),
+    )
+    for name, shape, build, sig in boundary:
+        for label, prec, method, precision in routes[:2] + routes[3:]:
+            kw = dict(dtype="float32", method=method or "pallas", precision=precision)
+            plan, cpu_plan = build(str(dev), **kw), build("cpu", **kw)
+            counters = (ff.fused_factored_features, ff.fused_tier_features)
+            before = [k.launches for k in counters]
+            with torch.no_grad():
+                out = plan.compute(sig).data
+            torch.cuda.synchronize()
+            launches = tuple(k.launches - b for k, b in zip(counters, before))
+            ref = cpu_plan.compute(sig).data
+            out = out.cpu()
+            want = (1, 0) if prec == "bf16x3" else (0, 1)
+            if name.startswith("silence"):
+                err = float((out + 100.0).abs().max())
+                ok, what = err <= 1e-4, "max|out + 100| dB (limit 1e-4)"
+                err = max(err, float((out - ref).abs().max()))
+            elif prec == "bf16x3":
+                err, ok, what = power_tol(out, ref)
+            else:
+                err, _, ok, what = twin_err(out, ref, "power")
+            ok = ok and launches == want and tuple(out.shape) == shape and bool(
+                torch.isfinite(out).all())
+            n_cases += 1
+            n_ok += ok
+            print(f"[13 boundary {label}] {name}: shape {tuple(out.shape)} (want {shape}), "
+                  f"launches f32/tier {launches[0]}/{launches[1]}, tile {getattr(plan._kernel_run, 'tile_f', None)}"
+                  f"; vs the CPU plan {what} {err:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                bad.append(f"boundary {name} {label}")
+    largest = ", ".join(f"{k} {o} {w[0]:.3e}/{w[1]:.3f}" for (k, o), w in sorted(worst.items()))
+    print(f"[13 domain] {card} | {n_ok} of {n_cases} cases ok ({n_run} sweep, "
+          f"{n_cases - n_run} boundary) in {time.perf_counter() - t_phase:.1f} s; largest "
+          f"reading vs plain (as its line states it) / error vs fft as a share of its limit, "
+          f"by kernel and output: {largest}")
+    if bad:
+        fail(f"phase 13: {len(bad)} case(s) outside their limits: {', '.join(bad)}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs one GPU")
@@ -2159,27 +2504,6 @@ def main() -> None:
     hann = lambda n: tg.make_window(tg.WindowType.hanning, n)
     mel128 = mel_filterbank(SR, 1024, tg.MelParams(128, 0.0, 8000.0, tg.MelNorm.SLANEY))
     dct40 = _dct_lifter_matrix(128, 40, 22)
-
-    def db_tol(out, ref):
-        # Both sides f32; they differ in summation order only (the kernel's
-        # radix-8 passes vs cuFFT, loops vs GEMM): ~1e-6 relative in power,
-        # ~5e-6 dB. 1e-3 dB leaves margin and still fails any wrong bin.
-        err = float((out - ref).abs().max())
-        return err, err <= 1e-3, "atol 1e-3 dB"
-
-    def mfcc_tol(out, ref):
-        # The DCT sums 128 dB values of magnitude ~1e2 into coefficients up
-        # to ~1e4: an absolute error relative to the largest coefficient.
-        err, limit = float((out - ref).abs().max()), 1e-4 * float(ref.abs().max())
-        return err, err <= limit, f"atol {limit:.3e} (1e-4*max|ref|)"
-
-    def power_tol(out, ref):
-        # rtol 1e-4. Near-empty bins carry the FFT's rounding of the whole
-        # frame's energy, not of their own, so they get an atol of
-        # 1e-7·max|ref| (the f32 rounding floor of the largest bin).
-        excess = (out - ref).abs() - 1e-4 * ref.abs() - 1e-7 * float(ref.abs().max())
-        err = float((out - ref).abs().max())
-        return err, float(excess.max()) <= 0.0, "rtol 1e-4 + atol 1e-7*max|ref|"
 
     mel40 = mel_filterbank(SR, 512, tg.MelParams(40, 0.0, 8000.0, tg.MelNorm.SLANEY))
     cases = [
@@ -2741,6 +3065,7 @@ def main() -> None:
     fft_image_phase(tg, ff, dev, card)
     tuning_parallel_phase(tg, ff, dev, card, phase7_rates)
     profiling_phase(tg, ff, dev, card, tier_bound)
+    kernel_domain_phase(tg, ff, dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "fused_features",

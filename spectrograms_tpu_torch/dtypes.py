@@ -130,9 +130,17 @@ def numpy_dtype(dtype: torch.dtype) -> np.dtype:
 
 
 def ensure_plan_dtype(dtype) -> None:
-    """Plans compute in float32 or float64 only (as in the JAX package)."""
+    """Plans compute in float32 or float64 only (as in the JAX package).
+
+    bfloat16 storage of spectrograms buys nothing (the dB and filterbank
+    math would degrade); bf16 tensor-core arithmetic is what ``precision``
+    picks (``Precision.DEFAULT``: the 1-pass bf16 tier with f32 sums).
+    """
     if dtype not in (torch.float32, torch.float64):
-        raise InvalidInputError(f"plans compute in float32/float64, got {dtype}")
+        raise InvalidInputError(
+            f"plans compute in float32/float64, got {dtype}; for bf16 tensor-core "
+            "arithmetic pass precision=Precision.DEFAULT to a float32 plan"
+        )
 
 
 def to_numpy_safe(arr):

@@ -52,6 +52,7 @@ __all__ = [
     "fused_features_reference",
     "fused_tier_features_reference",
     "tier_constants",
+    "tier_geometry",
     "supports_factored_fusion",
     "parse_pallas_method",
     "build_kernels",
@@ -268,6 +269,18 @@ def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
+def tier_geometry(fb: np.ndarray, dct, n_fft: int) -> tuple:
+    """(ntiles, slots, kc, map_cols, kd): what the tier kernel's block is
+    sized by. The mapping reads some outer n-tiles only: P holds those
+    (``kc`` columns), and the filterbank runs over the nonzero k-steps of
+    the compact mapping (``map_cols`` columns). With a DCT the filterbank's
+    columns are the DCT's rows, 16 to a k-step (``kd``; 0 without)."""
+    ntiles = tl.class_ntiles(fb, n_fft)
+    slots, kc = tl.power_slots(ntiles)
+    map_cols = _round_up(fb.shape[0], 16 if dct is not None else 8)
+    return ntiles, slots, kc, map_cols, map_cols if dct is not None else 0
+
+
 def _fragments(b, rows: int, cols: int, x2: bool, device):
     """Zero-pad (K, N) to (rows, cols), split to bf16 and lay out as mma B
     fragments: (hi, lo) int16 tensors of the bf16 bits, lo None at 1 pass."""
@@ -362,7 +375,9 @@ def _runner(dev, plain, launch, source, **work):
     kernel of ``csrc/<source>.cu`` (``run.source``). ``work`` (the f64
     ``mapping`` and ``dct``, ``pre_amp``, and for the tier kernel its
     ``precision`` and ``gauss`` form) rides along as attributes, for the
-    cost model (``profiling.plan_cost``)."""
+    cost model (``profiling.plan_cost``). ``run.plain`` is the plain
+    version on the runner's constants, on any device: what a check on the
+    card holds the kernel against."""
 
     def run(x):
         if x.dtype != torch.float32:
@@ -379,7 +394,7 @@ def _runner(dev, plain, launch, source, **work):
             raise InvalidInputError(f"batch {x.shape[0]} exceeds the kernel's grid limit 65535")
         return launch(x.contiguous())
 
-    run.source = source
+    run.source, run.plain = source, plain
     run.__dict__.update(work)
     return run
 
@@ -551,13 +566,7 @@ def fused_tier_features(
     x2 = precision == "bf16x2"
 
     if dev.type == "cuda":
-        # The mapping reads some outer n-tiles only: P holds those, and the
-        # filterbank runs over the nonzero k-steps of the compact mapping.
-        ntiles = tl.class_ntiles(fb, n_fft)
-        slots, kc = tl.power_slots(ntiles)
-        # DCT: the filterbank's columns are the DCT's rows, 16 to a k-step.
-        map_cols = _round_up(n_out, 16 if dct is not None else 8)
-        kd = map_cols if dct is not None else 0
+        ntiles, slots, kc, map_cols, kd = tier_geometry(fb, dct, n_fft)
         rw, G = fl.outer_constants(n_fft, gauss)
         rw_f = _fragments(rw, 256, 256, x2, dev)
         g_f = _fragments(G, *G.shape, x2, dev)

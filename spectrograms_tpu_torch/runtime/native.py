@@ -96,16 +96,21 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "sg_loader_release": ([c.c_void_p, c.c_int64], None),
         "sg_resample": ([c.POINTER(c.c_float), c.c_int64, c.c_double, c.c_double,
                          c.POINTER(c.c_float), c.c_int64], c.c_int64),
-        # mode 0 float32 rows, 1 int16 PCM rows, 2 μ-law bytes (runtime/ulaw.py)
+        # float32 rows; sg_loader_new2 adds the mode: 0 float32 rows, 1 int16
+        # PCM rows, 2 μ-law bytes (runtime/ulaw.py)
+        "sg_loader_new": ([c.POINTER(c.c_char_p), c.c_int64, c.c_int64, c.c_int64, c.c_int32,
+                           c.c_int32], c.c_void_p),
         "sg_loader_new2": ([c.POINTER(c.c_char_p), c.c_int64, c.c_int64, c.c_int64, c.c_int32,
                             c.c_int32, c.c_int32], c.c_void_p),
     }
-    for suffix, sample in (("", c.c_float), ("_i16", c.c_int16), ("_u8", c.c_uint8)):
+    for suffix, sample, decode in (("", c.c_float, ""), ("_i16", c.c_int16, "_i16"),
+                                   ("_u8", c.c_uint8, "_ulaw")):
         sp = c.POINTER(sample)
         sig[f"sg_loader_next{suffix}"] = ([c.c_void_p, sp, i64p, i32p, i64p], c.c_int64)
         sig[f"sg_loader_acquire{suffix}"] = (
             [c.c_void_p, i64p, c.POINTER(sp), c.POINTER(i64p), c.POINTER(i32p),
              c.POINTER(i64p)], c.c_int64)
+        sig[f"sg_wav_decode_into{decode}"] = ([c.c_char_p, sp, c.c_int64, i32p], c.c_int64)
     for name, (argtypes, restype) in sig.items():
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, restype

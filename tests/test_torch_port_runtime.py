@@ -10,12 +10,19 @@
   ``from_arrays`` under each rate policy and ``iter_borrowed(hold=2)`` give
   batches, lengths and rates identical to JAX's loader;
 - two processes building the native library at once;
+- the ctypes binding: every symbol either package's ``load_library()``
+  binds has the same ``argtypes`` and ``restype`` (compared as tables,
+  nothing called), and two threads pulling from one loader handle of the
+  port's library get every file exactly once;
 - none of the new modules imports JAX or the JAX package.
 """
 
 import ast
+import ctypes
+import re
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -226,6 +233,101 @@ def test_loader_corrupt_file_raises_after_the_good_batch(clips, tmp_path):
                                                    target_len=SR, n_threads=1):
             seen += int(lens[0] > 0)
     assert seen >= 1
+
+# ---- the ctypes binding against the JAX package's -------------------------------
+
+# Symbols whose C function returns void: the port types them so (restype
+# None), where the JAX binding leaves ctypes' default c_int. And the one
+# symbol with no arguments, whose argtypes the port sets to [] where JAX
+# leaves None. ``native/sgtpu.cpp`` is checked to declare them so.
+VOID_RESULT = ("sg_free", "sg_framer_free", "sg_loader_free", "sg_loader_release")
+NO_ARGUMENTS = ("sg_last_error",)
+
+
+def _bound(lib) -> dict:
+    """{name: (argtypes, restype)} of every C function ``lib`` has bound."""
+    return {k: (v.argtypes, v.restype) for k, v in vars(lib).items()
+            if isinstance(v, ctypes._CFuncPtr)}
+
+
+def _bound_now(lib, name: str) -> tuple:
+    fn = getattr(lib, name)
+    return fn.argtypes, fn.restype
+
+
+def test_native_binding_types_every_symbol_as_jax():
+    """``spectrograms_tpu.runtime.native._bind`` against the port's: the
+    same symbols, each with JAX's ``argtypes`` and ``restype`` (the
+    deliberate differences above apart). Compares the tables and calls
+    nothing, so a symbol left at ctypes' defaults fails here with the list
+    of differences instead of crashing the process at its first call."""
+    from spectrograms_tpu.runtime import native as jnative
+
+    jlib, tlib = jnative.load_library(), tnative.load_library()
+    jax_table, port_table = _bound(jlib), _bound(tlib)
+    src = (REPO / "native" / "sgtpu.cpp").read_text()
+    for name in VOID_RESULT:
+        assert re.search(rf"SG_API void {name}\(", src), name
+        assert jax_table[name][1] is ctypes.c_int and port_table[name][1] is None
+        port_table[name] = (port_table[name][0], ctypes.c_int)
+    for name in NO_ARGUMENTS:
+        assert re.search(rf"SG_API [^(]* {name}\(\)", src), name
+        assert jax_table[name][0] is None and port_table[name][0] == []
+        port_table[name] = (None, port_table[name][1])
+    # a symbol one binding leaves untyped reads ctypes' defaults there
+    typed = lambda lib, table, name: table.get(name) or _bound_now(lib, name)
+    differences = [
+        f"{name}: JAX {typed(jlib, jax_table, name)} port {typed(tlib, port_table, name)}"
+        for name in sorted(set(jax_table) | set(port_table))
+        if typed(jlib, jax_table, name) != typed(tlib, port_table, name)
+    ]
+    assert not differences, "\n".join(differences)
+
+
+def _consume_concurrently(lib, paths):
+    """Two threads pulling float32 batches from one ``sg_loader_new``
+    handle; every file index they got."""
+    c_paths = (ctypes.c_char_p * len(paths))(*[p.encode() for p in paths])
+    h = lib.sg_loader_new(c_paths, len(paths), 2, 256, 2, 2)
+    assert h
+    got, lock = [], threading.Lock()
+
+    def consume():
+        data = np.empty((2, 256), dtype=np.float32)
+        lens = np.empty((2,), dtype=np.int64)
+        pidx = np.empty((2,), dtype=np.int64)
+        while True:
+            n = lib.sg_loader_next(
+                h, data.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                None, pidx.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+            if n <= 0:
+                return
+            with lock:
+                got.extend(int(i) for i in pidx if i >= 0)
+
+    threads = [threading.Thread(target=consume) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    lib.sg_loader_free(h)
+    return sorted(got)
+
+
+def test_loader_concurrent_consumers_each_batch_once_on_the_port_library(tmp_path):
+    """``tests/test_runtime.py::test_loader_concurrent_consumers_each_batch_once``
+    on the library the port's ``load_library()`` returns: 24 clips, two
+    threads on one handle, three rounds; every file exactly once."""
+    paths = []
+    for i in range(24):
+        p = tmp_path / f"clip{i}.wav"
+        twav.write_wav(p, np.full(100 + i, (i + 1) / 10.0, dtype=np.float32), 8000, bits=16)
+        paths.append(str(p))
+    lib = tnative.load_library()
+    for _ in range(3):  # the claim/recycle race is timing-dependent
+        assert _consume_concurrently(lib, paths) == list(range(len(paths)))
+
 
 
 _BUILD = """
