@@ -1,0 +1,15 @@
+"""ops_host_ms: host self time of the feature modules on torch operations,
+the port's spans ``tg.op.<module>.<function>`` less the spans nested in
+them, summed over the program window (``harness/program_window.py``) and
+divided by its steps. ``--trace 1`` on a card only; None where the program
+records no span."""
+
+from harness import program_window as pw
+
+
+def measure(ctx):
+    pw.window(ctx)
+
+
+def read(ctx):
+    return pw.per_step_ms(ctx, lambda w: w.self_us("tg.op."))

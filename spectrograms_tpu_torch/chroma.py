@@ -44,6 +44,7 @@ from .ops.filterbanks import chroma_filterbank
 from .ops.framing import frame_count, frame_signal
 from .ops.fused_factored import KernelConst, fused_factored_features, supports_factored_fusion
 from .ops.gradients import kernel_forward_twin_grad
+from .spans import span
 
 __all__ = [
     "Chromagram",
@@ -144,6 +145,8 @@ class ChromaPlan:
     ``compute`` runs it over a 1-D signal, ``compute_batch`` over a (B, n)
     batch. Constants live on ``device`` (CUDA unless ``device="cpu"``).
     """
+
+    _span = "tg.plan.ChromaPlan"
 
     def __init__(
         self,
@@ -247,10 +250,11 @@ class ChromaPlan:
 
     def _normalize(self, chroma):
         """(..., 12, n_frames) → scaled by 2^d, normalized over the 12 classes."""
-        if self._decimation:
-            chroma = chroma * float(2**self._decimation)
-        norm = self.params.norm
-        return apply_chroma_normalization(chroma.transpose(-1, -2), norm).transpose(-1, -2)
+        with span("tg.op.chroma._normalize"):
+            if self._decimation:
+                chroma = chroma * float(2**self._decimation)
+            norm = self.params.norm
+            return apply_chroma_normalization(chroma.transpose(-1, -2), norm).transpose(-1, -2)
 
     def _kernel_post(self, y, nf: int):
         """The kernel on a (pre-decimated) signal, trimmed and normalized."""
@@ -258,12 +262,13 @@ class ChromaPlan:
 
     def _plain_post(self, y, nf: int):
         """The plain path on a (pre-decimated) signal: (..., 12, nf)."""
-        if y.is_cuda and y.dtype == torch.float32:
-            check_true_f32()
-        st = self._stft_eff
-        frames = frame_signal(y, st.n_fft, st.hop_size, st.centre)
-        mag_t = self._mag_plan._frames_to_bins(frames)[..., :nf, :]   # (..., nf, n_bins)
-        return self._normalize((mag_t @ self._fb_t).transpose(-1, -2))
+        with span("tg.op.chroma._plain_post"):
+            if y.is_cuda and y.dtype == torch.float32:
+                check_true_f32()
+            st = self._stft_eff
+            frames = frame_signal(y, st.n_fft, st.hop_size, st.centre)
+            mag_t = self._mag_plan._frames_to_bins(frames)[..., :nf, :]   # (..., nf, n_bins)
+            return self._normalize((mag_t @ self._fb_t).transpose(-1, -2))
 
     def _plain_forward(self, x):
         """The plain path: (..., n) → (..., 12, n_frames)."""
@@ -289,16 +294,18 @@ class ChromaPlan:
                                         lambda yb: self._plain_post(yb, nf))(y)
 
     def compute(self, samples) -> Chromagram:
-        x = torch.as_tensor(samples, dtype=self._dtype, device=self.device)
-        if x.ndim != 1 or x.shape[0] == 0:
-            raise InvalidInputError("expected a non-empty 1-D signal")
-        return Chromagram(data=self._forward(x), params=self.params)
+        with span(self._span):
+            x = torch.as_tensor(samples, dtype=self._dtype, device=self.device)
+            if x.ndim != 1 or x.shape[0] == 0:
+                raise InvalidInputError("expected a non-empty 1-D signal")
+            return Chromagram(data=self._forward(x), params=self.params)
 
     def compute_batch(self, batch) -> torch.Tensor:
-        xb = torch.as_tensor(batch, dtype=self._dtype, device=self.device)
-        if xb.ndim != 2 or xb.shape[1] == 0:
-            raise InvalidInputError(f"expected (batch, samples), got {tuple(xb.shape)}")
-        return self._forward(xb)
+        with span(self._span):
+            xb = torch.as_tensor(batch, dtype=self._dtype, device=self.device)
+            if xb.ndim != 2 or xb.shape[1] == 0:
+                raise InvalidInputError(f"expected (batch, samples), got {tuple(xb.shape)}")
+            return self._forward(xb)
 
 
 def chromagram(

@@ -28,6 +28,7 @@ from .ops.cqt import cqt_kernel_matrices, multirate_cqt_groups, resolve_cqt_poli
 from .ops.decimate import decimate_pow2_framed
 from .ops.framing import frame_count, framed_matmul
 from .params import CqtParams
+from .spans import span
 
 __all__ = ["CqtResult", "cqt"]
 
@@ -66,37 +67,38 @@ def multirate_ri_blocks(x, groups_dev, hop: int, nf: int, precision=None,
     ``x`` is (..., n); returns one (..., nf, 2·nb) tensor a group, in group
     (= ascending bin) order.
     """
-    if level_provider is None:
-        levels = {0: x}
+    with span("tg.op.cqt.multirate_ri_blocks"):
+        if level_provider is None:
+            levels = {0: x}
 
-        def level_provider(d, _levels=levels):
-            if d not in _levels:
-                if composite and d - 1 not in _levels and d >= 2:
-                    _levels[d] = decimate_pow2_framed(level_provider(d - 2), 2, precision)
-                else:
-                    _levels[d] = decimate_pow2_framed(level_provider(d - 1), 1, precision)
-            return _levels[d]
+            def level_provider(d, _levels=levels):
+                if d not in _levels:
+                    if composite and d - 1 not in _levels and d >= 2:
+                        _levels[d] = decimate_pow2_framed(level_provider(d - 2), 2, precision)
+                    else:
+                        _levels[d] = decimate_pow2_framed(level_provider(d - 1), 1, precision)
+                return _levels[d]
 
-    outs = []
-    for d, k_ri, e0, flen, jp in groups_dev:
-        y = level_provider(d)
-        hop_d = hop >> d
-        nf_sup = -(-nf // jp)  # super-frames that cover nf frames
-        n_fft_sup = int(k_ri.shape[0])  # flen when jp == 1
-        hop_sup = jp * hop_d
-        need = (nf_sup - 1) * hop_sup + n_fft_sup
-        left = flen - e0  # shift so that frame i ends at decimated i·hop_d + e0
-        if left < 0:
-            y = y[..., -left:]
-            left = 0
-        total = left + y.shape[-1]
-        w = F.pad(y, (left, max(0, need - total)))[..., :need]
-        ri = framed_matmul(w, k_ri, n_fft_sup, hop_sup, centre=False)  # (..., nf_sup, jp·2nb)
-        if jp > 1:
-            nb2 = k_ri.shape[1] // jp
-            ri = ri.reshape(*ri.shape[:-2], nf_sup * jp, nb2)
-        outs.append(ri[..., :nf, :])
-    return outs
+        outs = []
+        for d, k_ri, e0, flen, jp in groups_dev:
+            y = level_provider(d)
+            hop_d = hop >> d
+            nf_sup = -(-nf // jp)  # super-frames that cover nf frames
+            n_fft_sup = int(k_ri.shape[0])  # flen when jp == 1
+            hop_sup = jp * hop_d
+            need = (nf_sup - 1) * hop_sup + n_fft_sup
+            left = flen - e0  # shift so that frame i ends at decimated i·hop_d + e0
+            if left < 0:
+                y = y[..., -left:]
+                left = 0
+            total = left + y.shape[-1]
+            w = F.pad(y, (left, max(0, need - total)))[..., :need]
+            ri = framed_matmul(w, k_ri, n_fft_sup, hop_sup, centre=False)  # (..., nf_sup, jp·2nb)
+            if jp > 1:
+                nb2 = k_ri.shape[1] // jp
+                ri = ri.reshape(*ri.shape[:-2], nf_sup * jp, nb2)
+            outs.append(ri[..., :nf, :])
+        return outs
 
 
 @dataclass

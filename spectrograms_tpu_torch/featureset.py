@@ -30,6 +30,7 @@ import torch
 
 from .errors import InvalidInputError
 from .ops.decimate import DecimationCascade
+from .spans import span
 
 __all__ = ["FeatureSet"]
 
@@ -54,10 +55,15 @@ class FeatureSet:
     module docstring for deep shared levels).
     """
 
+    _span = "tg.plan.FeatureSet"
+
     def __init__(self, members: Sequence):
         if not members:
             raise InvalidInputError("FeatureSet needs at least one member")
         self._members = list(members)
+        self._member_spans = ["tg.member." + (type(m).__name__ if _is_plan(m)
+                                              else getattr(m, "__name__", type(m).__name__))
+                              for m in self._members]
         self._specs = []
         dtypes, devices = set(), set()
         for m in self._members:
@@ -110,26 +116,29 @@ class FeatureSet:
             for key, pad in self._flavors.items()
         }
         outs = []
-        for m, spec in zip(self._members, self._specs):
-            if not _is_plan(m):
-                outs.append(m(xb))
-            else:
-                outs.append(m._fs_forward_batch(xb, None if spec is None
-                                                else cascades[(spec[0], spec[1])]))
+        for m, spec, name in zip(self._members, self._specs, self._member_spans):
+            with span(name):
+                if not _is_plan(m):
+                    outs.append(m(xb))
+                else:
+                    outs.append(m._fs_forward_batch(xb, None if spec is None
+                                                    else cascades[(spec[0], spec[1])]))
         return tuple(outs)
 
     def compute_batch(self, batch) -> tuple:
         """Run every member over (batch, samples) → tuple of results."""
-        xb = torch.as_tensor(batch, dtype=self._dtype, device=self.device)
-        if xb.ndim != 2:
-            raise InvalidInputError(
-                f"expected a (batch, samples) array, got shape {tuple(xb.shape)}"
-            )
-        return self._step_impl(xb)
+        with span(self._span):
+            xb = torch.as_tensor(batch, dtype=self._dtype, device=self.device)
+            if xb.ndim != 2:
+                raise InvalidInputError(
+                    f"expected a (batch, samples) array, got shape {tuple(xb.shape)}"
+                )
+            return self._step_impl(xb)
 
     def compute(self, samples) -> tuple:
         """Run every member over one 1-D signal → tuple of results."""
-        x = torch.as_tensor(samples, dtype=self._dtype, device=self.device)
-        if x.ndim != 1 or x.shape[0] == 0:
-            raise InvalidInputError("expected a non-empty 1-D signal")
-        return tuple(r[0] for r in self._step_impl(x[None, :]))
+        with span(self._span):
+            x = torch.as_tensor(samples, dtype=self._dtype, device=self.device)
+            if x.ndim != 1 or x.shape[0] == 0:
+                raise InvalidInputError("expected a non-empty 1-D signal")
+            return tuple(r[0] for r in self._step_impl(x[None, :]))

@@ -33,6 +33,7 @@ from .errors import InvalidInputError
 from .ops.framing import frame_count, frame_signal, framed_matmul
 from .ops.ola import ola_matmul, overlap_add
 from .windows import WindowType, make_window, parse_window
+from .spans import span
 
 __all__ = ["MdctParams", "mdct", "imdct", "compute_mdct", "compute_imdct"]
 
@@ -169,15 +170,17 @@ def _imdct_folded_impl(coeffs_t, d4, w, two_n: int, hop: int):
 def _mdct_impl(x, fwd_basis, two_n: int, hop: int):
     """(..., n) → (..., N, n_frames): one framed matmul against the windowed
     basis (``frame_count(centre=False)`` is the MDCT framing exactly)."""
-    return framed_matmul(x, fwd_basis, two_n, hop, centre=False).transpose(-1, -2)
+    with span("tg.op.mdct._mdct_impl"):
+        return framed_matmul(x, fwd_basis, two_n, hop, centre=False).transpose(-1, -2)
 
 
 def _imdct_impl(coeffs_t, inv_basis, two_n: int, hop: int):
     """(..., n_frames, N) → (..., hop·(n_frames−1) + 2N): the inverse basis
     with overlap-add fused into the matmul when ``hop | 2N``."""
-    if two_n % hop == 0 and two_n > hop:
-        return ola_matmul(coeffs_t, inv_basis, hop)
-    return overlap_add(coeffs_t @ inv_basis, hop)
+    with span("tg.op.mdct._imdct_impl"):
+        if two_n % hop == 0 and two_n > hop:
+            return ola_matmul(coeffs_t, inv_basis, hop)
+        return overlap_add(coeffs_t @ inv_basis, hop)
 
 
 def _use_folded(two_n: int, method: str) -> bool:

@@ -35,6 +35,7 @@ from .ops.filterbanks import mel_filterbank
 from .ops.framing import frame_signal
 from .ops.fused_factored import KernelConst, fused_factored_features
 from .ops.gradients import kernel_forward_twin_grad
+from .spans import span
 
 __all__ = [
     "Mfcc",
@@ -146,6 +147,8 @@ class MfccPlan:
     the whole chain is one launch of a fused kernel.
     """
 
+    _span = "tg.plan.MfccPlan"
+
     def __init__(
         self,
         stft_params: StftParams,
@@ -239,14 +242,15 @@ class MfccPlan:
 
     def _plain_forward(self, x):
         """The plain path: (..., n) → (..., n_out, n_frames)."""
-        if self._mel_plan._multirate_inner is not None:
-            return self._mfcc_tail(self._mel_plan._forward_impl(x))
-        if x.is_cuda and x.dtype == torch.float32:
-            check_true_f32()
-        frames = frame_signal(x, self._stft.n_fft, self._stft.hop_size, self._stft.centre)
-        log_mel_t = self._mel_plan._frames_to_bins(frames)
-        p = self.mfcc_params
-        return _mfcc_core(log_mel_t, self._basis, p.include_c0, p.n_mfcc).transpose(-1, -2)
+        with span("tg.op.mfcc._plain_forward"):
+            if self._mel_plan._multirate_inner is not None:
+                return self._mfcc_tail(self._mel_plan._forward_impl(x))
+            if x.is_cuda and x.dtype == torch.float32:
+                check_true_f32()
+            frames = frame_signal(x, self._stft.n_fft, self._stft.hop_size, self._stft.centre)
+            log_mel_t = self._mel_plan._frames_to_bins(frames)
+            p = self.mfcc_params
+            return _mfcc_core(log_mel_t, self._basis, p.include_c0, p.n_mfcc).transpose(-1, -2)
 
     # ---- FeatureSet hooks (shared decimation cascade) ----------------------
     def _fs_cascade_spec(self):
@@ -271,16 +275,18 @@ class MfccPlan:
         return kernel_forward_twin_grad(lambda yb: self._kernel_run(yb)[..., :nf], plain)(y)
 
     def compute(self, samples) -> Mfcc:
-        x = torch.as_tensor(samples, dtype=self._dtype, device=self.device)
-        if x.ndim != 1 or x.shape[0] == 0:
-            raise InvalidInputError("expected a non-empty 1-D signal")
-        return Mfcc(data=self._forward(x), params=self.mfcc_params)
+        with span(self._span):
+            x = torch.as_tensor(samples, dtype=self._dtype, device=self.device)
+            if x.ndim != 1 or x.shape[0] == 0:
+                raise InvalidInputError("expected a non-empty 1-D signal")
+            return Mfcc(data=self._forward(x), params=self.mfcc_params)
 
     def compute_batch(self, batch) -> torch.Tensor:
-        xb = torch.as_tensor(batch, dtype=self._dtype, device=self.device)
-        if xb.ndim != 2 or xb.shape[1] == 0:
-            raise InvalidInputError(f"expected (batch, samples), got {tuple(xb.shape)}")
-        return self._forward(xb)
+        with span(self._span):
+            xb = torch.as_tensor(batch, dtype=self._dtype, device=self.device)
+            if xb.ndim != 2 or xb.shape[1] == 0:
+                raise InvalidInputError(f"expected (batch, samples), got {tuple(xb.shape)}")
+            return self._forward(xb)
 
 
 def mfcc(
@@ -327,18 +333,19 @@ def delta(features, width: int = 9, order: int = 1):
 
     Computes on the device the input lies on (numpy input: the CPU).
     """
-    if width < 3 or width % 2 != 1:
-        raise InvalidInputError("width must be an odd integer >= 3")
-    if order < 1:
-        raise InvalidInputError("order must be >= 1")
-    x = torch.as_tensor(result_data(features))
-    half = width // 2
-    n = np.arange(-half, half + 1, dtype=np.float64)
-    k = (n / np.sum(n * n)).astype(numpy_dtype(x.dtype))
-    out = x
-    for _ in range(order):
-        fp = torch.cat([out[..., :1].expand(*out.shape[:-1], half), out,
-                        out[..., -1:].expand(*out.shape[:-1], half)], dim=-1)
-        # correlate along time: d[t] = sum_j k[j] f[t + j - half]
-        out = sum(fp[..., i:i + out.shape[-1]] * float(k[i]) for i in range(width))
-    return out
+    with span("tg.op.mfcc.delta"):
+        if width < 3 or width % 2 != 1:
+            raise InvalidInputError("width must be an odd integer >= 3")
+        if order < 1:
+            raise InvalidInputError("order must be >= 1")
+        x = torch.as_tensor(result_data(features))
+        half = width // 2
+        n = np.arange(-half, half + 1, dtype=np.float64)
+        k = (n / np.sum(n * n)).astype(numpy_dtype(x.dtype))
+        out = x
+        for _ in range(order):
+            fp = torch.cat([out[..., :1].expand(*out.shape[:-1], half), out,
+                            out[..., -1:].expand(*out.shape[:-1], half)], dim=-1)
+            # correlate along time: d[t] = sum_j k[j] f[t + j - half]
+            out = sum(fp[..., i:i + out.shape[-1]] * float(k[i]) for i in range(width))
+        return out

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..dtypes import Precision, check_true_f32
+from ..spans import span
 from .framing import framed_matmul
 
 __all__ = [
@@ -184,27 +185,29 @@ def decimate_pow2_framed(x: torch.Tensor, d: int, precision=None,
     positive multiple of 2^d; the default 64·2^d gives 64 outputs a block.
     ``precision`` is accepted for the JAX signature; the product is f32.
     """
-    if d == 0:
-        return x
-    D = 2**d
-    H = hop if hop is not None else 64 * D
-    if H <= 0 or H % D != 0:
-        raise ValueError(
-            f"hop must be a positive multiple of 2^d = {D}, got {H}: each "
-            "frame must advance a whole number of output samples"
-        )
-    _check_f32(x)
-    n = x.shape[-1]
-    n_out = -(-n // D)  # ceil, the strided cascade's length
-    _, F_len, J, m = _framed_decim_plan(d, H)
-    nb = -(-n_out // J)
-    # Left pad m (band alignment); right pad so that frame nb-1, which reads
-    # z[H·(nb-1) : H·(nb-1)+F], is in bounds.
-    right = max(0, H * (nb - 1) + F_len - (n + m))
-    z = F.pad(x, (m, right))
-    blocks = framed_matmul(z, _band_matrix(d, H, x.dtype, str(x.device)), F_len, H, centre=False)
-    y = blocks[..., :nb, :].reshape(*x.shape[:-1], nb * J)
-    return y[..., :n_out]
+    with span("tg.op.decimate.decimate_pow2_framed"):
+        if d == 0:
+            return x
+        D = 2**d
+        H = hop if hop is not None else 64 * D
+        if H <= 0 or H % D != 0:
+            raise ValueError(
+                f"hop must be a positive multiple of 2^d = {D}, got {H}: each "
+                "frame must advance a whole number of output samples"
+            )
+        _check_f32(x)
+        n = x.shape[-1]
+        n_out = -(-n // D)  # ceil, the strided cascade's length
+        _, F_len, J, m = _framed_decim_plan(d, H)
+        nb = -(-n_out // J)
+        # Left pad m (band alignment); right pad so that frame nb-1, which reads
+        # z[H·(nb-1) : H·(nb-1)+F], is in bounds.
+        right = max(0, H * (nb - 1) + F_len - (n + m))
+        z = F.pad(x, (m, right))
+        band = _band_matrix(d, H, x.dtype, str(x.device))
+        blocks = framed_matmul(z, band, F_len, H, centre=False)
+        y = blocks[..., :nb, :].reshape(*x.shape[:-1], nb * J)
+        return y[..., :n_out]
 
 
 class DecimationCascade:
@@ -258,15 +261,16 @@ class DecimationCascade:
         ``length`` samples (default ceil((n + 2·keep_pad)/2^d)).
         ``keep_pad`` must be a multiple of 2^d and ≤ the cascade's pad.
         """
-        D = 1 << d
-        if keep_pad > self.pad or keep_pad % D or (self.pad - keep_pad) % D:
-            raise ValueError(
-                f"keep_pad={keep_pad} incompatible with cascade pad={self.pad} at "
-                f"level {d} (need keep_pad ≤ pad, both ≡ 0 mod 2^{d})"
-            )
-        y = self.level(d)[..., (self.pad - keep_pad) // D:]
-        if length is None:
-            length = -(-(self.n + 2 * keep_pad) // D)
-        if y.shape[-1] < length:
-            y = F.pad(y, (0, length - y.shape[-1]))
-        return y[..., :length]
+        with span("tg.op.decimate.DecimationCascade.level_slice"):
+            D = 1 << d
+            if keep_pad > self.pad or keep_pad % D or (self.pad - keep_pad) % D:
+                raise ValueError(
+                    f"keep_pad={keep_pad} incompatible with cascade pad={self.pad} at "
+                    f"level {d} (need keep_pad ≤ pad, both ≡ 0 mod 2^{d})"
+                )
+            y = self.level(d)[..., (self.pad - keep_pad) // D:]
+            if length is None:
+                length = -(-(self.n + 2 * keep_pad) // D)
+            if y.shape[-1] < length:
+                y = F.pad(y, (0, length - y.shape[-1]))
+            return y[..., :length]

@@ -41,6 +41,7 @@ import torch
 
 from ..dtypes import parse_dtype, resolve_device
 from ..errors import FftBackendError, InvalidInputError
+from ..spans import span
 from . import f32_layout as fl32
 from . import factored_layout as fl
 from . import tier_layout as tl
@@ -377,7 +378,8 @@ def _runner(dev, plain, launch, source, **work):
     ``precision`` and ``gauss`` form) rides along as attributes, for the
     cost model (``profiling.plan_cost``). ``run.plain`` is the plain
     version on the runner's constants, on any device: what a check on the
-    card holds the kernel against."""
+    card holds the kernel against. A launch is the span ``tg.kernel.<source>``."""
+    span_name = "tg.kernel." + source
 
     def run(x):
         if x.dtype != torch.float32:
@@ -387,12 +389,14 @@ def _runner(dev, plain, launch, source, **work):
         if x.device.type == "cpu":
             return plain(x)
         if x.ndim == 1:
-            return launch(x.contiguous()[None, :])[0]
+            with span(span_name):
+                return launch(x.contiguous()[None, :])[0]
         if x.ndim != 2:
             raise InvalidInputError(f"expected (n,) or (batch, n), got {tuple(x.shape)}")
         if x.shape[0] > 65535:
             raise InvalidInputError(f"batch {x.shape[0]} exceeds the kernel's grid limit 65535")
-        return launch(x.contiguous())
+        with span(span_name):
+            return launch(x.contiguous())
 
     run.source, run.plain = source, plain
     run.__dict__.update(work)

@@ -84,6 +84,7 @@ from .params import (
     StftParams,
     r2c_output_size,
 )
+from .spans import span
 from .windows import WindowType, make_window
 from .ops import filterbanks as fb
 from .ops.decimate import band_limited_decimation_depth, decimate_pow2_framed
@@ -301,6 +302,12 @@ class SpectrogramPlan:
     ``compute`` runs it over a 1-D signal, ``compute_batch`` over a (B, n)
     batch. Constants live on ``device`` (CUDA unless ``device="cpu"``).
     """
+
+    _span = "tg.plan.SpectrogramPlan"
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        cls._span = "tg.plan." + cls.__name__
 
     def __init__(
         self,
@@ -632,14 +639,15 @@ class SpectrogramPlan:
     def _cqt_mr_forward(self, x, level_provider=None):
         """The octave-stacked CQT, (..., n) → (..., n_out, n_frames).
         ``level_provider`` lets a ``FeatureSet`` hand in its shared cascade."""
-        if x.is_cuda and x.dtype == torch.float32:
-            check_true_f32()
-        nf = frame_count(x.shape[-1], self._n_fft, self._hop, self._centre)
-        blocks = multirate_ri_blocks(x, self._cqt_multirate, self._hop, nf, self.precision,
-                                     composite=self._cqt_mr_composite,
-                                     level_provider=level_provider)
-        mapped = torch.cat([self._cqt_power(ri, ri.shape[-1] // 2) for ri in blocks], dim=-1)
-        return _apply_amp(mapped, self.amp_scale, self._floor_db).transpose(-1, -2)
+        with span("tg.op.pipeline._cqt_mr_forward"):
+            if x.is_cuda and x.dtype == torch.float32:
+                check_true_f32()
+            nf = frame_count(x.shape[-1], self._n_fft, self._hop, self._centre)
+            blocks = multirate_ri_blocks(x, self._cqt_multirate, self._hop, nf, self.precision,
+                                         composite=self._cqt_mr_composite,
+                                         level_provider=level_provider)
+            mapped = torch.cat([self._cqt_power(ri, ri.shape[-1] // 2) for ri in blocks], dim=-1)
+            return _apply_amp(mapped, self.amp_scale, self._floor_db).transpose(-1, -2)
 
     def _cqt_forward(self, x):
         """The CQT plan's forward: the octave stack, or the framed matmul of
@@ -658,20 +666,21 @@ class SpectrogramPlan:
 
     def _forward_impl(self, x):
         """The plain path: (..., n) → (..., n_out, n_frames)."""
-        if self._multirate_inner is not None:
-            inner = self._multirate_inner[1]
-            return inner._forward_impl(self._mr_pre(x))[..., : self._mr_frames(x.shape[-1])]
-        if x.is_cuda and x.dtype == torch.float32:
-            check_true_f32()
-        if self.freq_scale == FreqScale.CQT:
-            return self._cqt_forward(x)
-        if self.method == "matmul":
-            # Window folded into [C | S], so frames stay raw: one pass over
-            # the signal's hop slices gives re and im together.
-            ri = framed_matmul(x, self._dft_cs, self._n_fft, self._hop, self._centre)
-            return self._bins(*ri.chunk(2, dim=-1)).transpose(-1, -2)
-        frames = frame_signal(x, self._n_fft, self._hop, self._centre)
-        return self._frames_to_bins(frames).transpose(-1, -2)
+        with span("tg.op.pipeline._forward_impl"):
+            if self._multirate_inner is not None:
+                inner = self._multirate_inner[1]
+                return inner._forward_impl(self._mr_pre(x))[..., : self._mr_frames(x.shape[-1])]
+            if x.is_cuda and x.dtype == torch.float32:
+                check_true_f32()
+            if self.freq_scale == FreqScale.CQT:
+                return self._cqt_forward(x)
+            if self.method == "matmul":
+                # Window folded into [C | S], so frames stay raw: one pass over
+                # the signal's hop slices gives re and im together.
+                ri = framed_matmul(x, self._dft_cs, self._n_fft, self._hop, self._centre)
+                return self._bins(*ri.chunk(2, dim=-1)).transpose(-1, -2)
+            frames = frame_signal(x, self._n_fft, self._hop, self._centre)
+            return self._frames_to_bins(frames).transpose(-1, -2)
 
     # ---- public API -------------------------------------------------------
     @property
@@ -701,29 +710,32 @@ class SpectrogramPlan:
 
     def compute(self, samples) -> Spectrogram:
         """Full spectrogram of a 1-D signal."""
-        data = self._forward(self._validate_signal(samples))
-        return Spectrogram(
-            data=data,
-            frequencies=self.frequencies,
-            times=self._times(data.shape[1]),
-            params=self.params,
-            freq_scale=self.freq_scale,
-            amp_scale=self.amp_scale,
-            floor_db=self._floor_db,
-        )
+        with span(self._span):
+            data = self._forward(self._validate_signal(samples))
+            return Spectrogram(
+                data=data,
+                frequencies=self.frequencies,
+                times=self._times(data.shape[1]),
+                params=self.params,
+                freq_scale=self.freq_scale,
+                amp_scale=self.amp_scale,
+                floor_db=self._floor_db,
+            )
 
     def compute_raw(self, samples) -> torch.Tensor:
         """Like :meth:`compute` but returns only the (n_bins, n_frames) tensor."""
-        return self._forward(self._validate_signal(samples))
+        with span(self._span):
+            return self._forward(self._validate_signal(samples))
 
     def compute_batch(self, batch) -> torch.Tensor:
         """(B, n) signal batch → (B, n_bins, n_frames)."""
-        xb = self._as_tensor(batch)
-        if xb.ndim != 2:
-            raise InvalidInputError(f"expected (batch, samples), got {tuple(xb.shape)}")
-        if xb.shape[1] == 0:
-            raise InvalidInputError("signal must be non-empty")
-        return self._forward(xb)
+        with span(self._span):
+            xb = self._as_tensor(batch)
+            if xb.ndim != 2:
+                raise InvalidInputError(f"expected (batch, samples), got {tuple(xb.shape)}")
+            if xb.shape[1] == 0:
+                raise InvalidInputError("signal must be non-empty")
+            return self._forward(xb)
 
     def compute_frame(self, samples, frame_idx: int) -> torch.Tensor:
         """Frame ``frame_idx`` of the signal's spectrogram, (n_bins,): the
@@ -760,12 +772,13 @@ class SpectrogramPlan:
         """Compute into a preallocated numpy array (``compute_into``,
         spectrogram.rs:414): a copy from the device into ``out``. Prefer
         :meth:`compute` for on-device pipelines."""
-        x = self._validate_signal(samples)
-        expected = self.output_shape(x.shape[0])
-        if tuple(out.shape) != expected:
-            raise DimensionMismatchError(expected, tuple(out.shape))
-        np.copyto(out, self._forward(x).detach().cpu().numpy())
-        return out
+        with span(self._span):
+            x = self._validate_signal(samples)
+            expected = self.output_shape(x.shape[0])
+            if tuple(out.shape) != expected:
+                raise DimensionMismatchError(expected, tuple(out.shape))
+            np.copyto(out, self._forward(x).detach().cpu().numpy())
+            return out
 
     # ---- FeatureSet hooks (shared decimation cascade) ----------------------
     def _fs_cascade_spec(self):

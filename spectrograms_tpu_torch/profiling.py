@@ -12,7 +12,8 @@ The peaks are NVIDIA's data-sheet figures (dense, no sparsity). On these
 cards float32 work outside the tensor cores runs at about a fifteenth of
 the bf16 tensor-core rate, so ``CostEstimate`` keeps that work apart
 (``f32_flops``) where a kernel does it beside tensor-core products.
-``trace`` records a ``torch.profiler`` trace of CPU and CUDA activity.
+``trace`` records a ``torch.profiler`` trace of CPU and CUDA activity,
+with the port's named spans (``span``, from ``spans.py``).
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from .ops import factored_layout as fl
 from .ops import tier_layout as tl
 from .ops.fused_factored import mapping_bands
 from .pipeline import AmpScale, FreqScale
+from .spans import span  # noqa: F401  (re-exported: the port's named spans)
 
 __all__ = [
     "ChipSpec",
@@ -360,6 +362,31 @@ class trace:
     the process's last one, and in the trace right after it; it kept them
     at gaps of 20 s or less. The first trace of a fresh process lost them
     once in twelve.
+
+    The trace holds the port's spans (``spans.span``), each a
+    ``user_annotation`` event on the host thread that ran it, on the clock
+    of the kernels and CUDA launch calls; any other ``torch.profiler``
+    session records them too, and outside one they cost one flag read:
+
+    - ``tg.pipeline.loader_wait``, ``tg.pipeline.upload``,
+      ``tg.pipeline.step``, ``tg.pipeline.batch``: a ``FeaturePipeline``
+      batch (waiting on the loader, the copy to the device, the stream
+      wait, dequantize and plan, the frame masks and wrapping);
+    - ``tg.plan.<class>``: a plan's ``compute``/``compute_batch`` or a
+      pipeline step's plan (``tg.plan.FeatureSet`` for a feature set), and
+      ``tg.member.<name>`` each member of a ``FeatureSet`` (the plan's class,
+      or the callable's ``__name__``);
+    - ``tg.op.<module>.<function>``: functions that run torch operations:
+      ``tg.op.mfcc.delta``, ``tg.op.mfcc._plain_forward``,
+      ``tg.op.chroma._normalize``, ``tg.op.chroma._plain_post``,
+      ``tg.op.cqt.multirate_ri_blocks``, ``tg.op.mdct._mdct_impl``,
+      ``tg.op.mdct._imdct_impl``, ``tg.op.decimate.decimate_pow2_framed``,
+      ``tg.op.decimate.DecimationCascade.level_slice``,
+      ``tg.op.pipeline._forward_impl`` (the plain framing and filterbank
+      route) and ``tg.op.pipeline._cqt_mr_forward``;
+    - ``tg.kernel.fused_features``, ``tg.kernel.fused_tier_features``: a
+      launch of a CUDA kernel (layout, output allocation, the library
+      call), each counted by its factory's ``.launches``.
     """
 
     def __init__(self, logdir: str, device=None):

@@ -41,6 +41,7 @@ from .parallel.data import plan_replica
 from .runtime.loader import AudioBatchLoader
 from .runtime.native import native_available
 from .runtime.ulaw import ulaw_decode_torch
+from .spans import span
 
 __all__ = ["FeatureBatch", "FeatureSetBatch", "FeaturePipeline"]
 
@@ -125,6 +126,20 @@ def _kernel_sources(plan) -> set:
         if run is not None:
             out.add(run.source)
     return out
+
+
+def _waited(items):
+    """A loader's ``iter_borrowed`` generator, each wait for its next batch
+    in a ``tg.pipeline.loader_wait`` span; closing this closes ``items``."""
+    try:
+        while True:
+            with span("tg.pipeline.loader_wait"):
+                item = next(items, None)
+            if item is None:
+                return
+            yield item
+    finally:
+        items.close()
 
 
 class FeaturePipeline:
@@ -300,7 +315,9 @@ class FeaturePipeline:
         """Dequantize and run ``plan`` (or every member of the set)."""
         forward = plan._step_impl if self._is_set else plan._forward
         with torch.no_grad():
-            return forward(self._dequant(xb))
+            x = self._dequant(xb)
+            with span(plan._span):
+                return forward(x)
 
     def _step(self, xb: torch.Tensor):
         """The step over one shipped batch: the plan, or under a mesh each
@@ -330,17 +347,18 @@ class FeaturePipeline:
 
     def _make_batch(self, feats, lengths: np.ndarray):
         """Wrap one step's output in the right batch type."""
-        if not self._is_set:
-            return FeatureBatch(features=feats, lengths=lengths,
-                                frame_mask=self._frame_mask(lengths))
-        masks = []
-        for geom, f in zip(self._member_geoms, feats):
-            if geom is None or f.ndim < 2:
-                masks.append(None)
-            else:
-                # the member's actual output frames set the mask's width
-                masks.append(self._mask_from(lengths, *geom, f.shape[-1]))
-        return FeatureSetBatch(features=tuple(feats), lengths=lengths, frame_masks=tuple(masks))
+        with span("tg.pipeline.batch"):
+            if not self._is_set:
+                return FeatureBatch(features=feats, lengths=lengths,
+                                    frame_mask=self._frame_mask(lengths))
+            masks = []
+            for geom, f in zip(self._member_geoms, feats):
+                if geom is None or f.ndim < 2:
+                    masks.append(None)
+                else:
+                    # the member's actual output frames set the mask's width
+                    masks.append(self._mask_from(lengths, *geom, f.shape[-1]))
+            return FeatureSetBatch(features=tuple(feats), lengths=lengths, frame_masks=tuple(masks))
 
     # ---- entry points ---------------------------------------------------------
     @property
@@ -428,39 +446,42 @@ class FeaturePipeline:
         copies the slot into pinned memory and returns with the copy to the
         card in flight. Either way the slot has been read when this returns.
         """
-        host = torch.from_numpy(data)
-        if self._copy_stream is None:
-            return host.clone(), None
-        with torch.cuda.stream(self._copy_stream):
-            if pinned:
-                staged = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
-                staged.copy_(host)
-                xb = staged.to(self.device, non_blocking=True)
-            else:
-                xb = host.to(self.device)
-            done = torch.cuda.Event()
-            done.record(self._copy_stream)
-        return xb, done
+        with span("tg.pipeline.upload"):
+            host = torch.from_numpy(data)
+            if self._copy_stream is None:
+                return host.clone(), None
+            with torch.cuda.stream(self._copy_stream):
+                if pinned:
+                    staged = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+                    staged.copy_(host)
+                    xb = staged.to(self.device, non_blocking=True)
+                else:
+                    xb = host.to(self.device)
+                done = torch.cuda.Event()
+                done.record(self._copy_stream)
+            return xb, done
 
     def _emit(self, xb: torch.Tensor, done, lengths: np.ndarray):
         """Order the step after the batch's copy, run it, wrap the batch."""
-        if done is not None:
-            stream = torch.cuda.current_stream(self.device)
-            stream.wait_event(done)
-            xb.record_stream(stream)  # allocated on the copy stream
-        return self._make_batch(self._step(xb), lengths)
+        with span("tg.pipeline.step"):
+            if done is not None:
+                stream = torch.cuda.current_stream(self.device)
+                stream.wait_event(done)
+                xb.record_stream(stream)  # allocated on the copy stream
+            feats = self._step(xb)
+        return self._make_batch(feats, lengths)
 
     def _run_loader(self, loader) -> Iterator[FeatureBatch]:
         # Serial (default): each batch is copied, then its step enqueued;
         # the loader threads decode meanwhile. Pipelined: batch k's copy is
         # enqueued before batch k-1's step (two ring slots held).
         if not self.pipeline_uploads or self._copy_stream is None:
-            for data, lengths, _ in loader.iter_borrowed():
+            for data, lengths, _ in _waited(loader.iter_borrowed()):
                 yield self._emit(*self._upload(data, pinned=False), lengths)
             return
         pending = None  # (copied-but-not-dispatched xb, its copy event, lengths)
         try:
-            for data, lengths, _ in loader.iter_borrowed(hold=2):
+            for data, lengths, _ in _waited(loader.iter_borrowed(hold=2)):
                 prev, pending = pending, (*self._upload(data, pinned=True), lengths)
                 if prev is not None:
                     yield self._emit(*prev)
@@ -489,7 +510,7 @@ class FeaturePipeline:
         staged, deferred_error = [], None
         pinned = self.pipeline_uploads and self._copy_stream is not None
         try:
-            for data, lengths, _ in loader.iter_borrowed():
+            for data, lengths, _ in _waited(loader.iter_borrowed()):
                 staged.append((*self._upload(data, pinned), np.array(lengths)))
         except Exception as e:  # served after the good prefix, as the serial loop would
             deferred_error = e
