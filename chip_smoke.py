@@ -71,12 +71,15 @@ beside this run's:
    the octave stack the policy elects), multirate chroma, MDCT round
    trip])``; the chroma member launches the f32 kernel once a step and
    equals the standalone plan, the kernel its plain version on the
-   decimated batch; the set's CQT member against the standalone plan at
+   decimated batch; ``compute_batch`` on four batches (eager, then a CUDA
+   graph's capture and replays) bit-equal to the eager step, with the
+   ``featureset.graph_*`` counters and the launches each call counts;
+   the set's CQT member against the standalone plan at
    ``tests/test_featureset.py``'s bounds, the f32 CQT (octave stack and
    dense ``truncate=True``) against the f64 plans, the MDCT round trip and
    its dense and folded forms, the gammatone bank (``scan`` and
-   ``parallel``) against the port's CPU run; times of the step, the
-   members alone and on their own (``separate``), the dense CQT step, the
+   ``parallel``) against the port's CPU run; times of the step (eager and
+   replayed), the members alone and on their own (``separate``), the dense CQT step, the
    cascade and the gammatone lowerings, the step's peak memory, and a
    ``profiling.trace`` breakdown of one step that names the f32 kernel (in
    this process, or in a fresh one when this process's trace raised on a
@@ -1050,6 +1053,29 @@ def config4_phase(tg, ff, dev, card, batch: int = 64) -> None:
     print(f"[9 launches] config 4's chroma member launches fused_features.cu {launches[0]} time "
           f"a step (fused_tier_features.cu {launches[1]})")
 
+    # ---- 9a'. the step as compute_batch runs it: a CUDA graph from the 2nd call ----------
+    from spectrograms_tpu_torch import featureset as fsm
+
+    graph_counters = ("graph_captures", "graph_replays", "graph_eager_steps",
+                      "graph_capture_failures")
+    g0 = tuple(getattr(fsm, k) for k in graph_counters)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    xs = [xb] + [torch.randn(xb.shape, device=dev, generator=gen) for _ in range(3)]
+    calls = [counted(lambda: fs.compute_batch(x)) for x in xs]
+    g_moved = tuple(getattr(fsm, k) - a for k, a in zip(graph_counters, g0))
+    with torch.no_grad():
+        g_equal = [all(torch.equal(a, b) for a, b in zip(out, fs._step_impl(x)))
+                   for x, (out, _) in zip(xs, calls)]
+    g_launches = [n for _, n in calls]
+    check("graph", all(g_equal) and g_moved == (1, 3, 1, 0)
+          and g_launches == [(1, 0), (2, 0), (1, 0), (1, 0)],
+          f"{card} | FeatureSet.compute_batch on 4 batches of ({batch}, {n}): outputs bit-equal "
+          f"to _step_impl on the same batch {g_equal}; graph counters moved "
+          + ", ".join(f"{k} {v}" for k, v in zip(graph_counters, g_moved))
+          + f" (want 1, 3, 1, 0); f32/tier launches a call {g_launches} (want (1, 0), then "
+          f"(2, 0) for the capture's warm-up and its replay, then (1, 0))")
+    del xs, calls
+
     y = ch._pre(xb)
     win_t, fb_t = ch._mag_plan._window, ch._fb_t.T.contiguous()
     fb64 = chroma_filterbank(sr / 4, 1024, ch.params)
@@ -1162,7 +1188,8 @@ def config4_phase(tg, ff, dev, card, batch: int = 64) -> None:
 
     with torch.no_grad():
         times = {label: time_ms(fn, reps=30) for label, fn in (
-            ("step", lambda: fs._step_impl(xb)), ("separate", separate),
+            ("step", lambda: fs._step_impl(xb)), ("graph step", lambda: fs.compute_batch(xb)),
+            ("separate", separate),
             ("truncate_true", dense_step), ("cqt", lambda: cq.compute_batch(xb)),
             ("cqt truncate_true", lambda: cq_dense.compute_batch(xb)),
             ("chroma", lambda: ch.compute_batch(xb)), ("mdct round trip", lambda: mdct_rt(xb)),
@@ -1184,8 +1211,9 @@ def config4_phase(tg, ff, dev, card, batch: int = 64) -> None:
           f"67 TFLOP/s, {dense_bytes / 1e6:.1f} MB at 3.35 TB/s); the MDCT round trip's bound "
           f"{max(m_ops, m_bytes):.4f} ms ({'operations' if m_ops >= m_bytes else 'bytes'}; "
           f"{mdct_ops / 1e9:.2f} GFLOP); cascade levels {depths} | "
-          f"host time of one step's enqueue (median of 30, device idle before): "
-          f"{host_us(lambda: fs._step_impl(xb), reps=30) / 1e3:.4f} ms")
+          f"host time of one step's enqueue (median of 30, device idle before): eager "
+          f"{host_us(lambda: fs._step_impl(xb), reps=30) / 1e3:.4f} ms, replayed "
+          f"{host_us(lambda: fs.compute_batch(xb), reps=30) / 1e3:.4f} ms")
 
     # ---- 9f. where one step's device time goes ----------------------------------------
     # profiling.trace in this long-lived process, after phases 7 and 8. A

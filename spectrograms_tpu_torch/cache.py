@@ -10,6 +10,11 @@ and, when a card is present, the CUDA memory PyTorch has allocated under the
 label ``device.cuda_memory_allocated`` (bytes; the JAX package reports its
 live arrays there), and the autotune wisdom's size under ``autotune.wisdom``.
 ``clear_fft_plan_cache`` empties every host cache (not the wisdom).
+
+``generation`` counts the times device constants were dropped or replaced
+(``constants_changed``: ``clear_fft_plan_cache`` and the ``convert``
+functions that install new constants into a plan); ``FeatureSet`` replays a
+CUDA graph only within the generation it was captured in.
 """
 
 from __future__ import annotations
@@ -20,6 +25,14 @@ from typing import Dict
 import torch
 
 __all__ = ["fft_plan_cache_info", "clear_fft_plan_cache", "cache_stats"]
+
+generation = 0
+
+
+def constants_changed() -> None:
+    """Move ``generation``: device constants were dropped or replaced."""
+    global generation
+    generation += 1
 
 # label → module (under this package) whose cached builders it reports. The
 # package imports every one of them; they are looked up in ``sys.modules``
@@ -90,3 +103,4 @@ def clear_fft_plan_cache() -> None:
     """Clear every host constant cache, the one-shots' plans included."""
     for fn in _host_caches().values():
         fn.cache_clear()
+    constants_changed()

@@ -33,6 +33,7 @@ from typing import Optional
 
 import numpy as np
 
+from .cache import constants_changed
 from .chroma import ChromaPlan
 from .convolution import OverlapSaveConvolver
 from .errors import DimensionMismatchError, InvalidInputError
@@ -69,6 +70,7 @@ def plan_constants_from_numpy(plan, window=None, mapping=None,
     (``(start, stop, s, k_ri)`` each) and ``cqt_groups`` (``(d, k_ri, e0,
     flen, jp)`` each) exactly when the plan has them. Returns ``plan``.
     """
+    constants_changed()  # a CUDA graph captured before reads the old constants
     cqt_args = (cqt_ri, cqt_bands, cqt_groups)
     if isinstance(plan, SpectrogramPlan) and plan.freq_scale == FreqScale.CQT:
         return _install_cqt(plan, window, mapping, dct_basis, *cqt_args)
@@ -154,6 +156,7 @@ def factored_constants_from_numpy(fk, c, s, tw_re, tw_im, butterflies, window=No
             _f64("butterflies", im, tuple(mine[1].shape)))
            for (re, im), mine in zip(butterflies, fk._bfs)]
     w = None if window is None else _f64("window", window, (fk.n_fft,))
+    constants_changed()  # a CUDA graph captured before reads the old constants
     fk._install(*arrays, bfs, w, dt, dev)
     return fk
 

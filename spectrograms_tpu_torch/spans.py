@@ -25,6 +25,13 @@ The names, one prefix a layer:
   (``fused_features``, ``fused_tier_features``): layout, output
   allocation and the call into the library.
 
+A ``FeatureSet`` that replays its plan members from a CUDA graph runs their
+Python only while it captures: their ``tg.member.*``, ``tg.op.*`` and
+``tg.kernel.*`` spans are recorded at the capture, not at a replay, whose
+host work falls in ``tg.plan.FeatureSet``. A replay still adds its kernels
+to their ``.launches`` counters, so spans and counters then differ. Its
+callable members run eagerly and keep their spans.
+
 This module imports only torch.
 """
 
