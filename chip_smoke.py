@@ -2515,11 +2515,8 @@ def main() -> None:
     native_thread = threading.Thread(target=build_native)
     t0 = time.perf_counter()
     native_thread.start()
-    _build.build_all(["fused_features", "fused_tier_features", "delta"])
-    _build.load_library("fused_features", ff._SIGNATURES)
-    _build.load_library("fused_tier_features", ff._TIER_SIGNATURES)
-    _build.load_library("delta", dops._SIGNATURES)
-    for name in ("fused_features", "fused_tier_features", "delta"):
+    _build.build_kernels(_build.SOURCES)
+    for name in _build.SOURCES:
         seconds, log = _build.build_log.get(name, (0.0, "(already built)"))
         ptxas = " ".join(
             line.split(":", 1)[-1].strip() for line in log.splitlines()

@@ -55,8 +55,7 @@ from torch.utils._pytree import tree_leaves
 
 from . import cache
 from .errors import InvalidInputError
-from .ops import delta as _delta_ops
-from .ops import fused_factored as _ff
+from .ops._build import add_launches, launch_counts
 from .ops.decimate import DecimationCascade
 from .spans import span
 
@@ -72,21 +71,6 @@ def _is_plan(m) -> bool:
     """A port plan: it has the FeatureSet hooks (``_fs_cascade_spec``,
     ``_fs_forward_batch``)."""
     return hasattr(m, "_fs_forward_batch")
-
-
-def _launch_counters() -> tuple:
-    """The hand-written kernels' launch counters, (owner, attribute) each."""
-    return ((_ff.fused_factored_features, "launches"), (_ff.fused_tier_features, "launches"),
-            (_delta_ops, "launches"))
-
-
-def _launch_counts() -> tuple:
-    return tuple(getattr(owner, attr) for owner, attr in _launch_counters())
-
-
-def _add_launches(counts, sign: int = 1) -> None:
-    for (owner, attr), n in zip(_launch_counters(), counts):
-        setattr(owner, attr, getattr(owner, attr) + sign * n)
 
 
 class _Reads(TorchFunctionMode):
@@ -323,9 +307,9 @@ class FeatureSet:
             launched = []
 
             def step(x):
-                before = _launch_counts()
+                before = launch_counts()
                 outs = self._plans_step(x)
-                launched[:] = [b - a for a, b in zip(before, _launch_counts())]
+                launched[:] = [b - a for a, b in zip(before, launch_counts())]
                 return outs
 
             try:
@@ -338,7 +322,7 @@ class FeatureSet:
                               stacklevel=4)
                 return None
             # the capture's launches are recorded, not run: a replay counts them
-            _add_launches(g.launched, -1)
+            add_launches(g.launched, -1)
             graph_captures += 1
             self._graph = g
         cur = torch.cuda.current_stream(xb.device)
@@ -347,7 +331,7 @@ class FeatureSet:
         g.stream = cur
         g.x.copy_(xb)
         g.replay()
-        _add_launches(g.launched)
+        add_launches(g.launched)
         graph_replays += 1
         self._last_key = key
         return [o.clone() for o in g.outs]

@@ -6,7 +6,13 @@ the hash covers the source and the flags, so an edited source is rebuilt and
 an unchanged one is loaded as it is. This takes seconds, where a source that
 includes PyTorch's headers (``torch.utils.cpp_extension.load``) takes minutes.
 Nothing is built when the package is imported: only the first launch builds,
-or ``build_all``, which starts one ``nvcc`` per source, all together.
+or ``build_all``/``build_kernels``, which start one ``nvcc`` per source, all
+together.
+
+``SOURCES`` is the one table of how each source is called: the ctypes
+signatures of its two C entries, its library, loaded at first use, and
+``Source.launch``, the one call through which every launch goes, which
+counts the launch in the source's ``.launches`` counter.
 """
 
 from __future__ import annotations
@@ -19,9 +25,12 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 from ..errors import FftBackendError
 
-__all__ = ["load_library", "build_all", "find_nvcc", "build_log", "BUILD_DIR", "NVCC_FLAGS"]
+__all__ = ["SOURCES", "Source", "load_library", "build_all", "build_kernels", "find_nvcc",
+           "build_log", "launch_counts", "add_launches", "BUILD_DIR", "NVCC_FLAGS"]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "spectrograms_tpu_torch"
@@ -31,7 +40,6 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
-_libs: dict = {}
 # source name -> (build seconds, nvcc's output: ptxas registers/spills)
 build_log: dict = {}
 
@@ -86,22 +94,109 @@ def build_all(names) -> None:
             raise FftBackendError("\n".join(failed))
 
 
-def load_library(name: str, signatures: dict) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``.
+def build_kernels(names) -> None:
+    """Build and load the named sources (``run.source`` of a runner)
+    without launching them: one ``nvcc`` each, all started together; a
+    built source is loaded as it is."""
+    names = sorted(set(names))
+    build_all(names)
+    for name in names:
+        load_library(name)
 
-    ``signatures`` maps each C function to ``(argtypes, restype)``; pointers
-    and streams must be ``ctypes.c_void_p`` so 64-bit addresses survive.
-    """
-    lib = _libs.get(name)
-    if lib is not None:
-        return lib
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``, its entries typed by
+    ``SOURCES[name]``."""
+    source = SOURCES[name]
+    if source.lib is not None:
+        return source.lib
     build_all([name])
     with _lock:
-        if name in _libs:
-            return _libs[name]
-        lib = ctypes.CDLL(str(_library_path(name)[1]))
-        for fn, (argtypes, restype) in signatures.items():
+        if source.lib is None:
+            source.lib = source.bind(ctypes.CDLL(str(_library_path(name)[1])))
+        return source.lib
+
+
+class Source:
+    """One ``csrc/<name>.cu``: the ctypes signatures of its C entries
+    ``<name>_launch`` (its arguments, then the stream) and
+    ``<name>_error_string``; ``lib``, its library once loaded; and
+    ``launch``, the one call that launches it. Pointers and streams are
+    ``ctypes.c_void_p``, so 64-bit addresses survive."""
+
+    def __init__(self, name: str, argtypes: list):
+        self.name = name
+        self.signatures = {
+            f"{name}_launch": ([*argtypes, ctypes.c_void_p], ctypes.c_int),
+            f"{name}_error_string": ([ctypes.c_int], ctypes.c_char_p),
+        }
+        self.lib = None
+
+    def bind(self, lib: ctypes.CDLL) -> ctypes.CDLL:
+        """Type ``lib``'s entries (this source's library, or another build
+        of it) by this source's signatures; returns ``lib``."""
+        for fn, (argtypes, restype) in self.signatures.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = restype
-        _libs[name] = lib
         return lib
+
+    def launch(self, device: torch.device, *args, lib=None) -> None:
+        """Call ``<name>_launch(*args, stream)`` on ``device``'s current
+        stream; raise ``FftBackendError`` on a non-zero return. A launch of
+        the source's own library that returns 0 is counted; one of another
+        build (``lib``, a stage variant) is not."""
+        own = lib is None
+        if own:
+            lib = self.lib or load_library(self.name)
+        dev = device.index
+        # the current stream's handle, without building a torch.cuda.Stream (~6 us a call)
+        args = (*args, torch._C._cuda_getCurrentRawStream(dev))
+        entry = getattr(lib, self.name + "_launch")
+        # The C entry launches on the current device: a guard only when the tensors are elsewhere.
+        if dev == torch.cuda.current_device():
+            rc = entry(*args)
+        else:
+            with torch.cuda.device(device):
+                rc = entry(*args)
+        if rc != 0:
+            msg = getattr(lib, self.name + "_error_string")(rc).decode()
+            raise FftBackendError(f"{self.name} kernel launch failed: {msg} ({rc})")
+        if own:
+            _counter_owners()[self.name].launches += 1
+
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+
+# every csrc source: its launch entry's arguments before the stream
+SOURCES = {source.name: source for source in (
+    Source("fused_features", [_P] * 8 + [_I, _LL] + [_I] * 9 + [_F] + [_I] * 3),
+    Source("fused_tier_features", [_P] * 17 + [_I, _LL] + [_I] * 23 + [_F]),
+    Source("delta", [_P, _P, _LL] + [_I] * 9),
+)}
+
+_owners: dict = {}
+
+
+def _counter_owners() -> dict:
+    """Source name -> the object whose ``.launches`` counts its launches:
+    ``fused_factored.fused_factored_features``, ``.fused_tier_features``
+    and the module ``ops.delta``."""
+    if not _owners:
+        from . import delta, fused_factored   # deferred: both import this module
+
+        _owners.update(fused_features=fused_factored.fused_factored_features,
+                       fused_tier_features=fused_factored.fused_tier_features, delta=delta)
+    return _owners
+
+
+def launch_counts() -> tuple:
+    """Every source's ``.launches``, in ``SOURCES``' order."""
+    owners = _counter_owners()
+    return tuple(owners[name].launches for name in SOURCES)
+
+
+def add_launches(counts, sign: int = 1) -> None:
+    """Add ``sign * counts`` (in ``SOURCES``' order) to the sources' ``.launches``."""
+    owners = _counter_owners()
+    for name, n in zip(SOURCES, counts):
+        owners[name].launches += sign * n

@@ -5,34 +5,24 @@ the launch of ``csrc/delta.cu``, which computes every order in one launch.
 ``launch`` on a float32 or float64 CUDA tensor; the two are equal bit for
 bit (the source's note says how). Both round the weights ``n / Σn²``,
 computed in float64, to the features' type. ``launches`` counts the
-kernel's launches.
+kernel's launches (``_build.Source.launch`` adds to it).
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
 import torch
 
 from ..dtypes import numpy_dtype
-from ..errors import FftBackendError, InvalidInputError
-from ._build import load_library
+from ..errors import InvalidInputError
+from ._build import SOURCES
 
 __all__ = ["delta_reference", "delta_weights", "launch", "layout", "kernel_dtype_code"]
 
 # dtype -> the kernel's code (csrc/delta.cu::delta_launch)
 _DTYPES = {torch.float32: 0, torch.float64: 1}
-
-_SIGNATURES = {
-    "delta_launch": (
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
-        + [ctypes.c_int] * 9 + [ctypes.c_void_p],
-        ctypes.c_int,
-    ),
-    "delta_error_string": ([ctypes.c_int], ctypes.c_char_p),
-}
 
 TILE = 1024                 # frames of a block's item; halved while shared memory overflows
 MAX_GRID = 8192             # blocks; each loops over items beyond that
@@ -100,7 +90,6 @@ def launch(x: torch.Tensor, width: int, order: int) -> torch.Tensor:
     """Launch ``csrc/delta.cu`` on a float32 or float64 CUDA tensor: one
     launch on the current stream, every order, counted in ``launches``; an
     empty tensor launches nothing."""
-    global launches
     code = kernel_dtype_code(x.dtype)
     if x.ndim == 0:
         raise InvalidInputError("delta needs at least one axis")
@@ -113,19 +102,6 @@ def launch(x: torch.Tensor, width: int, order: int) -> torch.Tensor:
         raise InvalidInputError(f"delta's kernel takes rows of fewer than 2**31 frames, got {T}")
     rows = x.numel() // T
     tile, tiles, span, smem = layout(T, width, order, x.dtype)
-    lib = load_library("delta", _SIGNATURES)
-    dev = x.device.index
-    # the current stream's handle, without building a torch.cuda.Stream (~6 us a call)
-    args = (x.data_ptr(), out.data_ptr(), rows, T, width, order, code, tile, tiles, span,
-            smem, min(rows * tiles, MAX_GRID), torch._C._cuda_getCurrentRawStream(dev))
-    # The C entry launches on the current device: a guard only when x is elsewhere.
-    if dev == torch.cuda.current_device():
-        rc = lib.delta_launch(*args)
-    else:
-        with torch.cuda.device(x.device):
-            rc = lib.delta_launch(*args)
-    if rc != 0:
-        msg = lib.delta_error_string(rc).decode()
-        raise FftBackendError(f"delta kernel launch failed: {msg} ({rc})")
-    launches += 1
+    SOURCES["delta"].launch(x.device, x.data_ptr(), out.data_ptr(), rows, T, width, order,
+                            code, tile, tiles, span, smem, min(rows * tiles, MAX_GRID))
     return out

@@ -30,7 +30,6 @@ under the JAX module's public names:
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import hashlib
 from dataclasses import dataclass
@@ -40,11 +39,12 @@ import numpy as np
 import torch
 
 from ..dtypes import parse_dtype, resolve_device
-from ..errors import FftBackendError, InvalidInputError
+from ..errors import InvalidInputError
 from ..spans import span
 from . import f32_layout as fl32
 from . import factored_layout as fl
 from . import tier_layout as tl
+from ._build import SOURCES
 from .framing import frame_count, frame_signal
 
 __all__ = [
@@ -56,7 +56,6 @@ __all__ = [
     "tier_geometry",
     "supports_factored_fusion",
     "parse_pallas_method",
-    "build_kernels",
     "KernelConst",
 ]
 
@@ -292,45 +291,6 @@ def _fragments(b, rows: int, cols: int, x2: bool, device):
     return frag(hi), (frag(lo) if x2 else None)
 
 
-_SIGNATURES = {
-    "fused_features_launch": (
-        [ctypes.c_void_p] * 8
-        + [ctypes.c_int, ctypes.c_longlong]
-        + [ctypes.c_int] * 9
-        + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
-        ctypes.c_int,
-    ),
-    "fused_features_error_string": ([ctypes.c_int], ctypes.c_char_p),
-}
-
-_TIER_SIGNATURES = {
-    "fused_tier_features_launch": (
-        [ctypes.c_void_p] * 17
-        + [ctypes.c_int, ctypes.c_longlong]
-        + [ctypes.c_int] * 23
-        + [ctypes.c_float, ctypes.c_void_p],
-        ctypes.c_int,
-    ),
-    "fused_tier_features_error_string": ([ctypes.c_int], ctypes.c_char_p),
-}
-
-
-# csrc source of each kernel -> the signatures of its C entry points
-_SOURCES = {"fused_features": _SIGNATURES, "fused_tier_features": _TIER_SIGNATURES}
-
-
-def build_kernels(sources) -> None:
-    """Build and load the named kernel sources (``run.source`` of a
-    runner) without launching them: one ``nvcc`` each, all started
-    together; a built source is loaded as it is."""
-    from ._build import build_all, load_library
-
-    sources = sorted(set(sources))
-    build_all(sources)
-    for name in sources:
-        load_library(name, _SOURCES[name])
-
-
 def _geometry(n_fft, hop, mapping_key, amp, pre_amp, dct_key):
     """Validate a kernel request; (mapping (n_out, n_bins), dct or None) f64."""
     if not supports_factored_fusion(n_fft, hop, torch.float32):
@@ -492,10 +452,6 @@ def fused_factored_features(
         """Launch on (batch, n) ``xb``. ``lib`` is another build of the
         source (a stage variant), whose launches are not counted; ``tile_f``
         overrides the tile."""
-        from ._build import load_library
-
-        own = lib is None
-        lib = load_library("fused_features", _SIGNATURES) if own else lib
         tile_f = tile if tile_f is None else tile_f
         if tile_f & (tile_f - 1):
             raise InvalidInputError(f"the kernel's tile is a power of two, not {tile_f}")
@@ -504,23 +460,13 @@ def fused_factored_features(
         batch, n = xb.shape
         nf = frame_count(n, n_fft, hop, centre)
         out = torch.empty((batch, n_final, nf), **f32)
-        # The C entry launches on the current device; the guard sets it to
-        # the tensors' and restores the caller's.
-        with torch.cuda.device(xb.device):
-            rc = lib.fused_features_launch(
-                xb.data_ptr(), window_t.data_ptr(), twiddle_t.data_ptr(),
-                items_t.data_ptr(), first_t.data_ptr(), weights_t.data_ptr(),
-                None if dct_t is None else dct_t.data_ptr(), out.data_ptr(),
-                batch, n, log2n, hop, n_fft // 2 if centre else 0, nf,
-                n_items, n_out, 0 if dct_t is None else n_final,
-                _AMPS[amp], _PRE_AMPS[pre_amp], eps, tile_f, buf_off, smem,
-                torch.cuda.current_stream(xb.device).cuda_stream,
-            )
-        if rc != 0:
-            msg = lib.fused_features_error_string(rc).decode()
-            raise FftBackendError(f"fused_features kernel launch failed: {msg} ({rc})")
-        if own:
-            fused_factored_features.launches += 1
+        SOURCES["fused_features"].launch(
+            xb.device, xb.data_ptr(), window_t.data_ptr(), twiddle_t.data_ptr(),
+            items_t.data_ptr(), first_t.data_ptr(), weights_t.data_ptr(),
+            None if dct_t is None else dct_t.data_ptr(), out.data_ptr(),
+            batch, n, log2n, hop, n_fft // 2 if centre else 0, nf,
+            n_items, n_out, 0 if dct_t is None else n_final,
+            _AMPS[amp], _PRE_AMPS[pre_amp], eps, tile_f, buf_off, smem, lib=lib)
         return out
 
     def plain(x):
@@ -612,33 +558,21 @@ def fused_tier_features(
         """Launch on (batch, n) ``xb``. ``lib`` is another build of the
         source (a stage variant), whose launches are not counted; ``tile_f``
         overrides the tile (8 or 16 frames)."""
-        from ._build import load_library
-
-        own = lib is None
-        lib = load_library("fused_tier_features", _TIER_SIGNATURES) if own else lib
         lay, items_t, groups_t = block(tile_f)
         batch, n = xb.shape
         nf = frame_count(n, n_fft, hop, centre)
         out = torch.empty((batch, n_final, nf), dtype=torch.float32, device=dev)
-        with torch.cuda.device(xb.device):
-            rc = lib.fused_tier_features_launch(
-                xb.data_ptr(), consts.window.data_ptr(), twiddle_t.data_ptr(),
-                *map(ptr, rw_f + g_f), items_t.data_ptr(), groups_t.data_ptr(),
-                slots_t.data_ptr(), first_t.data_ptr(), ks_t.data_ptr(),
-                *map(ptr, map_f + dct_f), out.data_ptr(),
-                batch, n, n_fft.bit_length() - 1, hop, n_fft // 2 if centre else 0, nf,
-                n_out, 0 if dct is None else n_final, map_cols // 8,
-                0 if dct is None else _round_up(n_final, 8) // 8, kc, p_cols, kd,
-                _AMPS[amp], _PRE_AMPS[pre_amp], int(x2), int(gauss), lay.tile_f,
-                int(lay.staged), len(lay.groups),
-                lay.p_off, lay.feat_off, lay.ar_off, lay.ac_off, lay.smem, eps,
-                torch.cuda.current_stream(xb.device).cuda_stream,
-            )
-        if rc != 0:
-            msg = lib.fused_tier_features_error_string(rc).decode()
-            raise FftBackendError(f"fused_tier_features kernel launch failed: {msg} ({rc})")
-        if own:
-            fused_tier_features.launches += 1
+        SOURCES["fused_tier_features"].launch(
+            xb.device, xb.data_ptr(), consts.window.data_ptr(), twiddle_t.data_ptr(),
+            *map(ptr, rw_f + g_f), items_t.data_ptr(), groups_t.data_ptr(),
+            slots_t.data_ptr(), first_t.data_ptr(), ks_t.data_ptr(),
+            *map(ptr, map_f + dct_f), out.data_ptr(),
+            batch, n, n_fft.bit_length() - 1, hop, n_fft // 2 if centre else 0, nf,
+            n_out, 0 if dct is None else n_final, map_cols // 8,
+            0 if dct is None else _round_up(n_final, 8) // 8, kc, p_cols, kd,
+            _AMPS[amp], _PRE_AMPS[pre_amp], int(x2), int(gauss), lay.tile_f,
+            int(lay.staged), len(lay.groups),
+            lay.p_off, lay.feat_off, lay.ar_off, lay.ac_off, lay.smem, eps, lib=lib)
         return out
 
     def plain(x):

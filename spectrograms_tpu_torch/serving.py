@@ -36,7 +36,7 @@ from .dtypes import resolve_device
 from .errors import InvalidInputError
 from .featureset import FeatureSet
 from .ops.framing import frame_count
-from .ops.fused_factored import build_kernels
+from .ops._build import build_kernels
 from .parallel.data import plan_replica
 from .runtime.loader import AudioBatchLoader
 from .runtime.native import native_available

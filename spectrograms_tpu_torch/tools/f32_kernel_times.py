@@ -120,7 +120,6 @@ def stages_and_tiles() -> None:
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
     from spectrograms_tpu_torch.ops import _build
     from spectrograms_tpu_torch.ops import f32_layout as fl32
-    from spectrograms_tpu_torch.ops import fused_factored as ff
 
     out = _build.BUILD_DIR / "f32_stages"
     out.mkdir(parents=True, exist_ok=True)
@@ -140,11 +139,7 @@ def stages_and_tiles() -> None:
         regs = sorted({int(w) for ws in words for w, nxt in zip(ws, ws[1:])
                        if nxt.startswith("registers")})
         print(f"[f32 variants] {name}: registers {regs}", flush=True)
-        lib = ctypes.CDLL(str(out / f"lib{name}.so"))
-        for fn, (argtypes, restype) in ff._SIGNATURES.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = restype
-        libs[name] = lib
+        libs[name] = _build.SOURCES["fused_features"].bind(ctypes.CDLL(str(out / f"lib{name}.so")))
 
     print(f"[f32 stages] {card()} | median/p90 ms of 100", flush=True)
     with torch.no_grad():

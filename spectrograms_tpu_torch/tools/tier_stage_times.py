@@ -159,7 +159,6 @@ def a_b(parent: str) -> None:
 def variants_and_tiles() -> None:
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
     from spectrograms_tpu_torch.ops import _build
-    from spectrograms_tpu_torch.ops import fused_factored as ff
 
     out = _build.BUILD_DIR / "tier_stages"
     out.mkdir(parents=True, exist_ok=True)
@@ -177,11 +176,7 @@ def variants_and_tiles() -> None:
         ptxas = " ".join(line.split(":", 1)[-1].strip() for line in log.splitlines()
                          if "registers" in line or "spill" in line)
         print(f"[tier variants] {name}: {ptxas}", flush=True)
-        lib = ctypes.CDLL(str(out / f"lib{name}.so"))
-        for fn, (argtypes, restype) in ff._TIER_SIGNATURES.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = restype
-        libs[name] = lib
+        libs[name] = _build.SOURCES["fused_tier_features"].bind(ctypes.CDLL(str(out / f"lib{name}.so")))
     clocked = libs.pop("clocks")
     clocked.fused_tier_features_clocks.argtypes = [ctypes.c_void_p]
     clocked.fused_tier_features_clocks.restype = ctypes.c_int

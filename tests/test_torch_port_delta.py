@@ -4,8 +4,9 @@
 On the CPU: numpy and CPU inputs take the chain (``ops/delta.py::
 delta_reference``) and launch nothing; a CUDA request is dispatched to the
 kernel (a dtype other than float32 and float64 raises, on either path)
-without a card; ``launch`` counts only the launches that return; the source
-exports its signature table; and a twin of the kernel's tiling, halo and
+without a card; ``launch`` counts only the launches that return (its call
+into ``ops/_build.py``'s table is held for all three sources in
+``tests/test_torch_port_build.py``, with the signatures); and a twin of the kernel's tiling, halo and
 clamp arithmetic, written here in torch ops, equals the chain bit for bit.
 The tests marked ``card`` hold the kernel itself against the chain on the
 same CUDA tensor; they skip without CUDA. This file imports no JAX, so on a
@@ -15,15 +16,13 @@ tests/test_torch_port_delta.py -m card`` runs them
 package's ``delta``).
 """
 
-import re
-from pathlib import Path
-
 import numpy as np
 import pytest
 import torch
 
 import spectrograms_tpu_torch as tg
 from spectrograms_tpu_torch.errors import FftBackendError, InvalidInputError
+from spectrograms_tpu_torch.ops import _build
 from spectrograms_tpu_torch.ops import delta as dops
 
 DTYPES = [torch.float32, torch.float64]
@@ -55,14 +54,6 @@ def test_cpu_and_numpy_inputs_take_the_chain(no_kernel, kind, order):
     assert torch.equal(out, ref)
 
 
-def test_source_exports_its_signature_table():
-    src = (Path(dops.__file__).resolve().parents[1] / "csrc" / "delta.cu").read_text()
-    exported = dict(re.findall(r'extern "C" [^(]*?\b(\w+)\(([^)]*)\)', src))
-    assert set(exported) == set(dops._SIGNATURES)
-    for name, (argtypes, _) in dops._SIGNATURES.items():
-        assert len(exported[name].split(",")) == len(argtypes), name
-
-
 @pytest.fixture
 def as_if_cuda(monkeypatch):
     """CPU tensors report ``is_cuda``: the dispatch of a CUDA request,
@@ -73,7 +64,7 @@ def as_if_cuda(monkeypatch):
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.bool, torch.complex64,
                                    torch.float16, torch.bfloat16])
 def test_a_cuda_request_other_than_f32_f64_raises(monkeypatch, as_if_cuda, dtype):
-    monkeypatch.setattr(dops, "load_library", lambda *a: pytest.fail("the kernel was loaded"))
+    monkeypatch.setattr(_build, "load_library", lambda *a: pytest.fail("the kernel was loaded"))
     dops.launches = 0
     with pytest.raises(InvalidInputError, match="float32 or float64"):
         tg.delta(torch.ones((2, 8), dtype=dtype))
@@ -125,7 +116,7 @@ class FakeLibrary:
 @pytest.mark.parametrize("shape", [(2, 3, 20), (0, 20)], ids=["full", "empty"])
 def test_launch_counts_only_launches_that_return(monkeypatch, rc, shape):
     lib = FakeLibrary(rc)
-    monkeypatch.setattr(dops, "load_library", lambda name, sigs: lib)
+    monkeypatch.setattr(_build.SOURCES["delta"], "lib", lib)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
     monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda dev: 0, raising=False)
     x = feats(shape, torch.float32)

@@ -43,6 +43,7 @@ import torch
 
 import spectrograms_tpu_torch as tg
 from spectrograms_tpu_torch import featureset as fsm
+from spectrograms_tpu_torch.ops import _build
 from spectrograms_tpu_torch.ops import decimate as dec
 from spectrograms_tpu_torch.ops import fused_factored as ff
 from spectrograms_tpu_torch.mdct import _consts_for, _imdct_impl, _mdct_impl
@@ -87,11 +88,11 @@ class FakeCuda:
 
         def replay():
             self.log.append("replay")
-            before = fsm._launch_counts()
+            before = _build.launch_counts()
             for o, n in zip(outs, fn(static)):
                 o.copy_(n)
             # a graph's replay makes no launch call from the host
-            fsm._add_launches([b - a for a, b in zip(before, fsm._launch_counts())], -1)
+            _build.add_launches([b - a for a, b in zip(before, _build.launch_counts())], -1)
 
         return static, outs, replay, []
 

@@ -8,8 +8,6 @@ held against the JAX kernel run as ``tests/test_pallas.py`` runs it
 wrapper's host-side arithmetic (bands, tiles, the build) is checked too.
 """
 
-import ctypes
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -206,52 +204,15 @@ def test_tiles_fit_in_shared_memory():
         fl32.tile_frames(4096, 1024, 2049, 60000, True)
 
 
-def test_launch_signature_matches_the_c_entry():
-    argtypes, restype = tff._SIGNATURES["fused_features_launch"]
-    assert restype is ctypes.c_int
-    src = (_build._CSRC / "fused_features.cu").read_text()
-    entry = src[src.index('extern "C" int fused_features_launch('):]
-    params = [q.strip() for q in entry[entry.index("(") + 1: entry.index(")")].split(",")]
-    assert len(params) == len(argtypes)
-    c_type = {ctypes.c_void_p: "*", ctypes.c_int: "int ", ctypes.c_longlong: "long long ",
-              ctypes.c_float: "float "}
-    for param, argtype in zip(params, argtypes):
-        if argtype is ctypes.c_void_p:
-            assert "*" in param, param
-        else:
-            assert param.startswith(c_type[argtype]) and "*" not in param, (param, argtype)
-    assert "pallas_factored.py::_kernel" in src
-    assert "use_fast_math" not in " ".join(_build.NVCC_FLAGS)
-    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
-
-
-def test_tier_launch_signature_matches_the_c_entry():
-    argtypes, restype = tff._TIER_SIGNATURES["fused_tier_features_launch"]
-    assert restype is ctypes.c_int
-    src = (_build._CSRC / "fused_tier_features.cu").read_text()
-    entry = src[src.index('extern "C" int fused_tier_features_launch('):]
-    params = [q.strip() for q in entry[entry.index("(") + 1: entry.index(")")].split(",")]
-    assert len(params) == len(argtypes)
-    c_type = {ctypes.c_void_p: "*", ctypes.c_int: "int ", ctypes.c_longlong: "long long ",
-              ctypes.c_float: "float "}
-    for param, argtype in zip(params, argtypes):
-        if argtype is ctypes.c_void_p:
-            assert "*" in param, param
-        else:
-            assert param.startswith(c_type[argtype]) and "*" not in param, (param, argtype)
-    assert "pallas_factored.py::_kernel" in src
-    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
-
-
 def test_missing_nvcc_raises_a_clear_error(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(_build.os, "access", lambda *a: False)
     with pytest.raises(tg.FftBackendError, match="nvcc not found"):
         _build.find_nvcc()
-    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build.SOURCES["fused_features"], "lib", None)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(tg.FftBackendError, match="nvcc not found"):
-        _build.load_library("fused_features", tff._SIGNATURES)
+        _build.load_library("fused_features")
 
 
 def test_kernel_forward_twin_grad_differentiates_the_twin():
