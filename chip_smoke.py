@@ -7,15 +7,16 @@ Run from the repository root, with no arguments::
 
 Two feature kernels: ``csrc/fused_features.cu`` (f32, the ``precision=HIGH``
 path) and ``csrc/fused_tier_features.cu`` (bf16 tensor cores, the
-``precision=DEFAULT`` and ``method="pallas:x2"`` tiers); and ``csrc/delta.cu``
-(``tg.delta`` on CUDA tensors). Phases, each
+``precision=DEFAULT`` and ``method="pallas:x2"`` tiers); ``csrc/delta.cu``
+(``tg.delta`` on CUDA tensors) and ``csrc/mdct.cu`` (the batched MDCT and
+IMDCT at hop = N on float32 CUDA tensors). Phases, each
 printing lines (any failure exits non-zero, nothing is caught); the f32
 kernel's lines carry the values that the first recorded runs of its
 first (radix-2) and current (radix-8) designs printed ("recorded: ...")
 beside this run's:
 
 1. the card (``nvidia-smi`` name and power limit) and the software versions;
-2. build of the three sources, one ``nvcc`` each, started together
+2. build of the four sources, one ``nvcc`` each, started together
    (seconds, ptxas registers/spills);
 3. each kernel against its plain PyTorch version on the card, same inputs
    from a numpy seed: the f32 kernel at eight geometries, the tier kernel at
@@ -77,7 +78,11 @@ beside this run's:
    the set's CQT member against the standalone plan at
    ``tests/test_featureset.py``'s bounds, the f32 CQT (octave stack and
    dense ``truncate=True``) against the f64 plans, the MDCT round trip and
-   its dense and folded forms, the gammatone bank (``scan`` and
+   its dense and folded forms; ``csrc/mdct.cu`` (9c) against the dense
+   products on the batch in both directions, one launch each and no
+   products in the member's call (``mdct.launches``, ``mdct.chain_calls``),
+   each launch timed beside its bytes bound and the products; the
+   gammatone bank (``scan`` and
    ``parallel``) against the port's CPU run; times of the step (eager and
    replayed), the members alone and on their own (``separate``), the dense CQT step, the
    cascade and the gammatone lowerings, the step's peak memory, and a
@@ -893,7 +898,9 @@ def surface_phase(tg, ff, dev, card, xb, tier_bound) -> None:
 # truncate=True) of the peak against its f64 plans on two config-4 rows on
 # the CPU. The MDCT round trip at tests/test_mdct.py's 1e-3 in the
 # interior; its dense and folded forms at 1e-5 of the peak of each other
-# (both f32, one product each, summed in other orders). The gammatone bank
+# (both f32, one product each, summed in other orders), and csrc/mdct.cu
+# against the dense products at the same 1e-5 (f32, an FFT's sums in place
+# of a product's). The gammatone bank
 # on the card against the port's CPU scan at f64 to 1e-9 relative (the
 # JAX scalar-reference test, tests/test_cqt_erb.py:93-124).
 C4_MID, C4_ALL = 5e-5, 5e-3
@@ -997,7 +1004,7 @@ def config4_phase(tg, ff, dev, card, batch: int = 64) -> None:
     """Phase 9: ``benchmarks/suite.py`` config 4 at full size, 64 clips of 5 s
     (see the module docstring); a smaller ``batch`` rehearses it. Each check
     prints its reading before a failure ends the run."""
-    from spectrograms_tpu_torch.mdct import _consts_for, _mdct_folded_impl, _mdct_impl
+    from spectrograms_tpu_torch.mdct import _consts_for, _imdct_impl, _mdct_folded_impl, _mdct_impl
     from spectrograms_tpu_torch.ops.decimate import DecimationCascade
     from spectrograms_tpu_torch.ops.filterbanks import chroma_filterbank
 
@@ -1134,21 +1141,68 @@ def config4_phase(tg, ff, dev, card, batch: int = 64) -> None:
               f"{card} | CqtPowerPlan f32 vs f64 on two config-4 rows, {label}: max|err|/max "
               f"{err:.3e} (limit {C4_F64:g})")
 
-    # ---- 9c. MDCT ---------------------------------------------------------------------
+    # ---- 9c. MDCT: csrc/mdct.cu against the dense products ---------------------------
+    tmdct = sys.modules["spectrograms_tpu_torch.mdct"]
+    fwd, inv = _consts_for(mp, False, xb.dtype, dev)
+    fwd_copy, inv_copy = fwd.clone(), inv.clone()   # not built by _device_consts: the products
     with torch.no_grad():
         rt_fold = mdct_rt(xb, folded=True)
-        c_dense = _mdct_impl(xb, _consts_for(mp, False, xb.dtype, dev)[0], 512, 256)
+        c_dense = _mdct_impl(xb, fwd, 512, 256)
+        torch.cuda.synchronize()
+        c_chain = _mdct_impl(xb, fwd_copy, 512, 256)
+        y_kernel = _imdct_impl(c_dense.transpose(-1, -2), inv, 512, 256)
+        torch.cuda.synchronize()
+        y_chain = _imdct_impl(c_dense.transpose(-1, -2), inv_copy, 512, 256)
         d4, wa, wb, wc, wd, _ = _consts_for(mp, True, xb.dtype, dev)
         c_fold = _mdct_folded_impl(xb, d4, wa, wb, wc, wd, 512, 256)
+        tmdct.launches = tmdct.chain_calls = 0
+        mdct_rt(xb)
+        torch.cuda.synchronize()
+        member_counts = (tmdct.launches, tmdct.chain_calls)
     m = got_rt.shape[-1]
     rt_err = float((got_rt[:, 512:m - 512] - xb[:, 512:m - 512]).abs().max())
     fold_c, fold_rt = rel(c_fold, c_dense), rel(rt_fold, got_rt)
+    k_c, k_y = rel(c_dense, c_chain), rel(y_kernel, y_chain)
     check("mdct", rt_err <= C4_MDCT and fold_c <= C4_FOLD and fold_rt <= C4_FOLD,
           f"{card} | MdctParams.sine_window(512) round trip of ({batch}, {n}) -> "
           f"{tuple(got_rt.shape)}: interior max|err| {rt_err:.3e} (limit {C4_MDCT:g}); folded vs "
           f"dense coefficients {fold_c:.3e}, round trip {fold_rt:.3e} of the peak (limit "
           f"{C4_FOLD:g})")
-    del rt_fold, c_dense, c_fold
+    check("mdct kernel", k_c <= C4_FOLD and k_y <= C4_FOLD and member_counts == (2, 0),
+          f"{card} | csrc/mdct.cu vs the dense products on ({batch}, {n}): coefficients "
+          f"{k_c:.3e}, inverse {k_y:.3e} of the peak (limit {C4_FOLD:g}); the member's call: "
+          f"mdct.launches {member_counts[0]}, mdct.chain_calls {member_counts[1]} (want 2, 0)")
+    ct = c_dense.transpose(-1, -2)
+    with torch.no_grad():
+        mdct_times = {label: time_ms(fn, reps=50) for label, fn in (
+            ("forward", lambda: _mdct_impl(xb, fwd, 512, 256)),
+            ("inverse", lambda: _imdct_impl(ct, inv, 512, 256)),
+            ("forward products", lambda: _mdct_impl(xb, fwd_copy, 512, 256)),
+            ("inverse products", lambda: _imdct_impl(ct, inv_copy, 512, 256)))}
+    # bytes a launch: its input and output once each
+    fwd_bytes = 4.0 * (xb.numel() + c_dense.numel())
+    inv_bytes = 4.0 * (c_dense.numel() + y_kernel.numel())
+    bounds = {"forward": fwd_bytes / H100_BYTES_PER_S * 1e3,
+              "inverse": inv_bytes / H100_BYTES_PER_S * 1e3}
+    print(f"[9 mdct times] {card} | median/p90 of 50 (L2 flushed, device spin): "
+          + ", ".join(f"{k} {v[0]:.4f}/{v[1]:.4f} ms" for k, v in mdct_times.items())
+          + " | bytes bounds (3.35 TB/s): "
+          + ", ".join(f"{k} {bounds[k]:.4f} ms ({b / 1e6:.1f} MB, {bounds[k] / mdct_times[k][0]:.1%}"
+                      f" of it)" for k, b in (("forward", fwd_bytes), ("inverse", inv_bytes))))
+    mdct_entry = {
+        "name": "mdct",
+        "route": "cuda",
+        "source": "spectrograms_tpu_torch/csrc/mdct.cu",
+        "replaces": None,
+        "launches": member_counts[0],
+        "max_abs_err": max(k_c, k_y),
+        "ms": mdct_times["forward"][0] + mdct_times["inverse"][0],
+        "plain_ms": mdct_times["forward products"][0] + mdct_times["inverse products"][0],
+        "bound_ms": bounds["forward"] + bounds["inverse"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    }
+    del rt_fold, c_dense, c_fold, c_chain, y_kernel, y_chain, ct
 
     # ---- 9d. the gammatone bank ---------------------------------------------------------
     xg = np.random.default_rng(SEED + 9).standard_normal(16000)
@@ -1208,7 +1262,7 @@ def config4_phase(tg, ff, dev, card, batch: int = 64) -> None:
           f"audio-s a step), truncate_true {audio_s / (times['truncate_true'][0] / 1e3):.0f} "
           f"audio-s/s | the dense CQT product's bound {max(d_ops, d_bytes):.4f} ms "
           f"({'operations' if d_ops >= d_bytes else 'bytes'}; {dense_ops / 1e9:.2f} GFLOP at "
-          f"67 TFLOP/s, {dense_bytes / 1e6:.1f} MB at 3.35 TB/s); the MDCT round trip's bound "
+          f"67 TFLOP/s, {dense_bytes / 1e6:.1f} MB at 3.35 TB/s); the MDCT products' bound "
           f"{max(m_ops, m_bytes):.4f} ms ({'operations' if m_ops >= m_bytes else 'bytes'}; "
           f"{mdct_ops / 1e9:.2f} GFLOP); cascade levels {depths} | "
           f"host time of one step's enqueue (median of 30, device idle before): eager "
@@ -1242,6 +1296,7 @@ def config4_phase(tg, ff, dev, card, batch: int = 64) -> None:
              + " | top by device time: "
              + "; ".join(f"{k[:70]} x{c} {t / 1e3:.3f} ms" for k, c, t in top)))
     print(f"[9 phase] {time.perf_counter() - t_phase:.1f} s")
+    return mdct_entry
 
 
 # Phase 10's limits. Image results in f32 against numpy f64 of the same
@@ -2503,7 +2558,7 @@ def main() -> None:
         fail("TF32 matmuls are enabled; the plain references need true f32")
 
     # ---- 2. build -------------------------------------------------------
-    # the host library (g++) builds beside the three nvcc builds
+    # the host library (g++) builds beside the four nvcc builds
     from spectrograms_tpu_torch.runtime import native
     native_build = {}
 
@@ -2523,7 +2578,7 @@ def main() -> None:
             if "registers" in line or "spill" in line
         )
         print(f"[2 build] {name}.cu sm_90a in {seconds:.2f} s "
-              f"(all three, in parallel, loaded in {time.perf_counter() - t0:.2f} s) | {ptxas}")
+              f"(all four, in parallel, loaded in {time.perf_counter() - t0:.2f} s) | {ptxas}")
     native_thread.join()
     if "path" not in native_build or not native.native_available():
         fail("the native host library native/sgtpu.cpp did not build")
@@ -3136,7 +3191,7 @@ def main() -> None:
     del yp, exact_mfcc
     surface_phase(tg, ff, dev, card, xb, tier_bound)
     del xb
-    config4_phase(tg, ff, dev, card)
+    mdct_entry = config4_phase(tg, ff, dev, card)
     fft_image_phase(tg, ff, dev, card)
     tuning_parallel_phase(tg, ff, dev, card, phase7_rates)
     profiling_phase(tg, ff, dev, card, tier_bound)
@@ -3178,7 +3233,7 @@ def main() -> None:
         "bound_ms": delta_bound_ms,
         "bound_by": "bytes",
         "library_ms": None,
-    }]}))
+    }, mdct_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

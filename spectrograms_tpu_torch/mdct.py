@@ -18,10 +18,25 @@ inverse folds overlap-add into its matmul when ``hop | 2N``
 DCT-IV form, half the multiply-adds. The public functions take a 1-D signal
 (2-D coefficients); the private ``_mdct_impl``/``_imdct_impl`` and their
 folded twins take leading batch dimensions.
+
+On a float32 CUDA tensor at hop = N, with N/2 a power of two from 4 to 2048
+and a dense basis that ``_device_consts`` built (known by identity),
+``_mdct_impl`` and ``_imdct_impl`` launch ``csrc/mdct.cu`` once each: the
+TDAC fold and a DCT-IV by an N/2-point FFT, bound by bytes, in place of the
+dense products. ``mdct_kernel_twin`` and ``imdct_kernel_twin`` compute that
+factorization in torch ops. Every other call (CPU tensors, float64, other
+hops, any other matrix) takes the dense chain. When the input requires
+grad, the kernel's result carries the dense chain's gradient
+(``ops.gradients.kernel_forward_twin_grad``). ``launches`` counts the
+kernel's launches (``ops/_build.py::Source.launch`` adds to it),
+``chain_calls`` the CUDA calls that took the chain.
 """
 
 from __future__ import annotations
 
+import math
+import sys
+import weakref
 from dataclasses import dataclass
 from functools import lru_cache
 
@@ -30,12 +45,20 @@ import torch
 
 from .dtypes import check_precision, check_true_f32, parse_dtype, resolve_device
 from .errors import InvalidInputError
+from .ops._build import SOURCES
 from .ops.framing import frame_count, frame_signal, framed_matmul
+from .ops.gradients import kernel_forward_twin_grad
 from .ops.ola import ola_matmul, overlap_add
 from .windows import WindowType, make_window, parse_window
 from .spans import span
 
 __all__ = ["MdctParams", "mdct", "imdct", "compute_mdct", "compute_imdct"]
+
+launches = 0        # csrc/mdct.cu launches, counted as each returns
+chain_calls = 0     # CUDA calls of _mdct_impl/_imdct_impl that took the dense chain
+SOURCES["mdct"].counter = sys.modules[__name__]
+
+KERNEL_N = (8, 4096)    # the kernel's N = window_size/2: N/2 a power of two in this range
 
 
 @dataclass(frozen=True)
@@ -120,11 +143,50 @@ def _window_key(params: MdctParams) -> tuple:
 
 
 @lru_cache(maxsize=32)
+def _kernel_tables(two_n: int, window_key) -> np.ndarray:
+    """``csrc/mdct.cu``'s constants in float64, 6N values (M = N/2): the
+    window (2N), then M complex values (re, im) each of ``pre[m] =
+    exp(−iπm/N)``, ``post[k] = exp(−iπ(k+¼)/N)``, ``(2/N)·post`` (the
+    inverse's) and the FFT's ``W[t] = exp(−2πit/M)``."""
+    n = two_n // 2
+    i = np.arange(n // 2, dtype=np.float64)
+    post = np.exp(-1j * np.pi * (i + 0.25) / n)
+    parts = [np.exp(-1j * np.pi * i / n), post, (2.0 / n) * post,
+             np.exp(-2j * np.pi * i / (n // 2))]
+    out = np.concatenate([np.asarray(window_key, dtype=np.float64)]
+                         + [np.stack([z.real, z.imag], axis=-1).ravel() for z in parts])
+    out.setflags(write=False)
+    return out
+
+
+# id(dense basis) -> (a weak reference to it, its window_size, whether it is the
+# inverse's, the kernel's float32 tables on its device), filled by
+# _device_consts: the kernel computes only with the bases it built.
+_kernel_bases: dict = {}
+
+
+def _register(basis: torch.Tensor, two_n: int, inverse: bool, tables: torch.Tensor) -> None:
+    key = id(basis)
+
+    def forget(ref, key=key):
+        if _kernel_bases.get(key, (None,))[0] is ref:
+            del _kernel_bases[key]
+
+    _kernel_bases[key] = (weakref.ref(basis, forget), two_n, inverse, tables)
+
+
+@lru_cache(maxsize=32)
 def _device_consts(two_n: int, window_key, folded: bool, dtype: torch.dtype,
                    device: torch.device):
-    """The dense bases or the folded constants as tensors on ``device``."""
+    """The dense bases or the folded constants as tensors on ``device``; a
+    float32 pair of dense bases is registered with the kernel's tables."""
     arrays = (_folded_consts if folded else _mdct_basis)(two_n, window_key)
-    return tuple(torch.tensor(a, dtype=dtype, device=device) for a in arrays)
+    out = tuple(torch.tensor(a, dtype=dtype, device=device) for a in arrays)
+    if not folded and dtype == torch.float32:
+        tables = torch.tensor(_kernel_tables(two_n, window_key), dtype=dtype, device=device)
+        for basis, inverse in zip(out, (False, True)):
+            _register(basis, two_n, inverse, tables)
+    return out
 
 
 def _consts_for(params: MdctParams, folded: bool, dtype: torch.dtype, device: torch.device):
@@ -167,20 +229,139 @@ def _imdct_folded_impl(coeffs_t, d4, w, two_n: int, hop: int):
     return overlap_add(frames, hop)
 
 
+def _kernel_tables_for(t: torch.Tensor, basis, two_n: int, hop: int, inverse: bool):
+    """The kernel's tables when ``csrc/mdct.cu`` computes this call, else
+    None: ``t`` float32 at hop = N in the kernel's N, and ``basis`` the
+    forward's (``inverse`` False) or the inverse's dense basis of this
+    window_size that ``_device_consts`` built, on ``t``'s device."""
+    n = two_n // 2
+    if t.dtype != torch.float32 or hop != n or not KERNEL_N[0] <= n <= KERNEL_N[1] or n & (n - 1):
+        return None
+    entry = _kernel_bases.get(id(basis))
+    if entry is None or entry[0]() is not basis or entry[1:3] != (two_n, inverse):
+        return None
+    return entry[3] if entry[3].device == t.device else None
+
+
+def _launch(t: torch.Tensor, tables: torch.Tensor, two_n: int, inverse: bool) -> torch.Tensor:
+    """One launch of ``csrc/mdct.cu`` on a float32 CUDA tensor: the forward
+    (..., L) → (..., n_frames, N), or the inverse (..., n_frames, N) →
+    (..., N·(n_frames + 1)). The kernel derives its block, shared memory
+    and grid from N, the rows and the frames."""
+    n = two_n // 2
+    if inverse and (t.ndim < 2 or t.shape[-1] != n):
+        raise InvalidInputError(f"the inverse takes (..., n_frames, {n}) coefficients, got "
+                                f"{tuple(t.shape)}")
+    t = t.contiguous()
+    if inverse:
+        if t.data_ptr() % 16:   # the kernel reads each frame as 16-byte vectors
+            t = t.clone()
+        lead, nf, length = t.shape[:-2], t.shape[-2], 0
+        out = torch.empty((*lead, n * (nf + 1)), dtype=t.dtype, device=t.device)
+    else:
+        lead, length = t.shape[:-1], t.shape[-1]
+        nf = frame_count(length, two_n, n, centre=False)
+        out = torch.empty((*lead, nf, n), dtype=t.dtype, device=t.device)
+    rows = math.prod(lead)
+    if rows == 0:
+        return out
+    if max(length, nf + 1) >= 2**31:
+        raise InvalidInputError("mdct's kernel takes rows of fewer than 2**31 samples or frames")
+    SOURCES["mdct"].launch(t.device, t.data_ptr(), out.data_ptr(), tables.data_ptr(), rows,
+                           length, nf, n, int(inverse))
+    return out
+
+
+def _kernel_call(kernel, chain, t: torch.Tensor) -> torch.Tensor:
+    """``kernel(t)``; when ``t`` requires grad, through
+    ``kernel_forward_twin_grad``, so the gradient is the dense ``chain``'s."""
+    if t.requires_grad and torch.is_grad_enabled():
+        return kernel_forward_twin_grad(kernel, chain)(t)
+    return kernel(t)
+
+
 def _mdct_impl(x, fwd_basis, two_n: int, hop: int):
     """(..., n) → (..., N, n_frames): one framed matmul against the windowed
-    basis (``frame_count(centre=False)`` is the MDCT framing exactly)."""
+    basis (``frame_count(centre=False)`` is the MDCT framing exactly), or on
+    CUDA one launch of ``csrc/mdct.cu`` (see the module's docstring)."""
+    global chain_calls
     with span("tg.op.mdct._mdct_impl"):
+        if x.is_cuda:
+            tables = _kernel_tables_for(x, fwd_basis, two_n, hop, False)
+            if tables is not None:
+                return _kernel_call(
+                    lambda t: _launch(t, tables, two_n, inverse=False),
+                    lambda t: framed_matmul(t, fwd_basis, two_n, hop, centre=False),
+                    x).transpose(-1, -2)
+            chain_calls += 1
         return framed_matmul(x, fwd_basis, two_n, hop, centre=False).transpose(-1, -2)
 
 
 def _imdct_impl(coeffs_t, inv_basis, two_n: int, hop: int):
     """(..., n_frames, N) → (..., hop·(n_frames−1) + 2N): the inverse basis
-    with overlap-add fused into the matmul when ``hop | 2N``."""
+    with overlap-add fused into the matmul when ``hop | 2N``, or on CUDA one
+    launch of ``csrc/mdct.cu`` (see the module's docstring)."""
+    global chain_calls
     with span("tg.op.mdct._imdct_impl"):
+        if coeffs_t.is_cuda:
+            tables = _kernel_tables_for(coeffs_t, inv_basis, two_n, hop, True)
+            if tables is not None:
+                return _kernel_call(lambda t: _launch(t, tables, two_n, inverse=True),
+                                    lambda t: ola_matmul(t, inv_basis, hop), coeffs_t)
+            chain_calls += 1
         if two_n % hop == 0 and two_n > hop:
             return ola_matmul(coeffs_t, inv_basis, hop)
         return overlap_add(coeffs_t @ inv_basis, hop)
+
+
+def _twin_parts(tables: torch.Tensor, n: int) -> tuple:
+    """(window, pre, post, (2/N)·post) of the kernel's tables, complex in
+    the tables' precision."""
+    z = tables[2 * n:].reshape(4, n // 2, 2)
+    z = torch.complex(z[..., 0], z[..., 1])
+    return tables[: 2 * n], z[0], z[1], z[2]
+
+
+def _dct4_twin(u: torch.Tensor, pre: torch.Tensor, post: torch.Tensor) -> torch.Tensor:
+    """The kernel's DCT-IV of the last axis: ``z[m] = (u[2m] + i·u[N−1−2m])·
+    pre[m]``, an N/2-point FFT, ``Y = post·Z``, ``C[2k] = Re Y[k]``,
+    ``C[N−1−2k] = −Im Y[k]``."""
+    y = torch.fft.fft(torch.complex(u[..., 0::2], u.flip(-1)[..., 0::2]) * pre) * post
+    return torch.stack([y.real, (-y.imag).flip(-1)], dim=-1).reshape(u.shape)
+
+
+def mdct_kernel_twin(x: torch.Tensor, tables: torch.Tensor, two_n: int) -> torch.Tensor:
+    """What ``csrc/mdct.cu``'s forward computes, in torch ops and in the
+    tables' precision: (..., L) → (..., n_frames, N) at hop N; the TDAC fold
+    of each frame (a signal shorter than a frame zero-padded to it), then
+    ``_dct4_twin``."""
+    n, h = two_n // 2, two_n // 4
+    w, pre, post, _ = _twin_parts(tables, n)
+    nf = frame_count(x.shape[-1], two_n, n, centre=False)
+    need = (nf + 1) * n
+    xp = torch.nn.functional.pad(x, (0, max(0, need - x.shape[-1])))[..., :need]
+    s = xp.unfold(-1, two_n, n) * w
+    u = torch.cat([-s[..., n:n + h].flip(-1) - s[..., n + h:],
+                   s[..., :h] - s[..., h:n].flip(-1)], dim=-1)
+    return _dct4_twin(u, pre, post)
+
+
+def imdct_kernel_twin(coeffs_t: torch.Tensor, tables: torch.Tensor, two_n: int) -> torch.Tensor:
+    """What ``csrc/mdct.cu``'s inverse computes, in torch ops and in the
+    tables' precision: (..., n_frames, N) → (..., N·(n_frames + 1)). The
+    frames −1 .. n_frames (the two outside the signal zeros) through the
+    DCT-IV with ``(2/N)·post``, unfolded as ``[v₂, −rev(v₂), −rev(v₁),
+    −v₁]·w``; hop-block b is the second half of frame b−1 plus the first
+    half of frame b. The kernel's teams recompute a run's halo frame b0−1,
+    which gives the same values as the frame computed once here."""
+    n, h = two_n // 2, two_n // 4
+    w, pre, _, post_inv = _twin_parts(tables, n)
+    frames = torch.nn.functional.pad(coeffs_t, (0, 0, 1, 1))
+    v = _dct4_twin(frames, pre, post_inv)
+    v1, v2 = v[..., :h], v[..., h:]
+    first = torch.cat([v2, -v2.flip(-1)], dim=-1) * w[:n]
+    second = torch.cat([-v1.flip(-1), -v1], dim=-1) * w[n:]
+    return (second[..., :-1, :] + first[..., 1:, :]).flatten(-2)
 
 
 def _use_folded(two_n: int, method: str) -> bool:

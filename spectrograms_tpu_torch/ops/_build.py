@@ -12,7 +12,8 @@ together.
 ``SOURCES`` is the one table of how each source is called: the ctypes
 signatures of its two C entries, its library, loaded at first use, and
 ``Source.launch``, the one call through which every launch goes, which
-counts the launch in the source's ``.launches`` counter.
+counts the launch in the ``.launches`` of the source's ``counter``: the
+object that the module owning the source names there when it is imported.
 """
 
 from __future__ import annotations
@@ -120,9 +121,11 @@ def load_library(name: str) -> ctypes.CDLL:
 class Source:
     """One ``csrc/<name>.cu``: the ctypes signatures of its C entries
     ``<name>_launch`` (its arguments, then the stream) and
-    ``<name>_error_string``; ``lib``, its library once loaded; and
-    ``launch``, the one call that launches it. Pointers and streams are
-    ``ctypes.c_void_p``, so 64-bit addresses survive."""
+    ``<name>_error_string``; ``lib``, its library once loaded;
+    ``counter``, whose ``.launches`` counts its launches (set by the
+    module that owns the source); and ``launch``, the one call that
+    launches it. Pointers and streams are ``ctypes.c_void_p``, so 64-bit
+    addresses survive."""
 
     def __init__(self, name: str, argtypes: list):
         self.name = name
@@ -131,6 +134,7 @@ class Source:
             f"{name}_error_string": ([ctypes.c_int], ctypes.c_char_p),
         }
         self.lib = None
+        self.counter = None
 
     def bind(self, lib: ctypes.CDLL) -> ctypes.CDLL:
         """Type ``lib``'s entries (this source's library, or another build
@@ -162,7 +166,7 @@ class Source:
             msg = getattr(lib, self.name + "_error_string")(rc).decode()
             raise FftBackendError(f"{self.name} kernel launch failed: {msg} ({rc})")
         if own:
-            _counter_owners()[self.name].launches += 1
+            self.counter.launches += 1
 
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -172,31 +176,16 @@ SOURCES = {source.name: source for source in (
     Source("fused_features", [_P] * 8 + [_I, _LL] + [_I] * 9 + [_F] + [_I] * 3),
     Source("fused_tier_features", [_P] * 17 + [_I, _LL] + [_I] * 23 + [_F]),
     Source("delta", [_P, _P, _LL] + [_I] * 9),
+    Source("mdct", [_P] * 3 + [_LL] + [_I] * 4),
 )}
-
-_owners: dict = {}
-
-
-def _counter_owners() -> dict:
-    """Source name -> the object whose ``.launches`` counts its launches:
-    ``fused_factored.fused_factored_features``, ``.fused_tier_features``
-    and the module ``ops.delta``."""
-    if not _owners:
-        from . import delta, fused_factored   # deferred: both import this module
-
-        _owners.update(fused_features=fused_factored.fused_factored_features,
-                       fused_tier_features=fused_factored.fused_tier_features, delta=delta)
-    return _owners
 
 
 def launch_counts() -> tuple:
     """Every source's ``.launches``, in ``SOURCES``' order."""
-    owners = _counter_owners()
-    return tuple(owners[name].launches for name in SOURCES)
+    return tuple(source.counter.launches for source in SOURCES.values())
 
 
 def add_launches(counts, sign: int = 1) -> None:
     """Add ``sign * counts`` (in ``SOURCES``' order) to the sources' ``.launches``."""
-    owners = _counter_owners()
-    for name, n in zip(SOURCES, counts):
-        owners[name].launches += sign * n
+    for source, n in zip(SOURCES.values(), counts):
+        source.counter.launches += sign * n

@@ -11,6 +11,7 @@ kernel's launches (``_build.Source.launch`` adds to it).
 from __future__ import annotations
 
 import functools
+import sys
 
 import numpy as np
 import torch
@@ -29,6 +30,7 @@ MAX_GRID = 8192             # blocks; each loops over items beyond that
 SMEM_MAX = 232448           # dynamic shared memory a block may use on sm_90
 
 launches = 0                # kernel launches, counted as each returns
+SOURCES["delta"].counter = sys.modules[__name__]
 
 
 def kernel_dtype_code(dtype: torch.dtype) -> int:

@@ -481,6 +481,7 @@ def fused_factored_features(
 
 
 fused_factored_features.launches = 0
+SOURCES["fused_features"].counter = fused_factored_features
 
 
 @functools.lru_cache(maxsize=32)
@@ -586,3 +587,4 @@ def fused_tier_features(
 
 
 fused_tier_features.launches = 0
+SOURCES["fused_tier_features"].counter = fused_tier_features

@@ -1,5 +1,5 @@
 """``ops/_build.py``'s table of the CUDA sources, ``SOURCES``, and its one
-launch call, ``Source.launch``, through which all three kernels launch.
+launch call, ``Source.launch``, through which all four kernels launch.
 
 On the CPU, with a fake library in place of a built one:
 
@@ -12,7 +12,7 @@ On the CPU, with a fake library in place of a built one:
 - a launch of another build of a source (a stage variant) is not counted;
 - the device guard is entered only for tensors off the current device, and
   the stream is that device's current raw stream;
-- ``launch_counts``/``add_launches`` read and move the three counters.
+- ``launch_counts``/``add_launches`` read and move the four counters.
 
 The tests marked ``card`` launch each source once on a side stream and hold
 it against its plain version; they skip without CUDA. This file imports no
@@ -23,6 +23,7 @@ tests/test_torch_port_build.py -m card`` runs them.
 import contextlib
 import ctypes
 import re
+import sys
 
 import pytest
 import torch
@@ -32,17 +33,20 @@ from spectrograms_tpu_torch.ops import _build
 from spectrograms_tpu_torch.ops import delta as dops
 from spectrograms_tpu_torch.ops import fused_factored as tff
 
-NAMES = ["fused_features", "fused_tier_features", "delta"]
+NAMES = ["fused_features", "fused_tier_features", "delta", "mdct"]
+tmdct = sys.modules["spectrograms_tpu_torch.mdct"]
 
 
 def owner(name):
     return {"fused_features": tff.fused_factored_features,
-            "fused_tier_features": tff.fused_tier_features, "delta": dops}[name]
+            "fused_tier_features": tff.fused_tier_features, "delta": dops, "mdct": tmdct}[name]
 
 
 def test_the_table_lists_the_three_sources_in_counter_order():
     assert list(_build.SOURCES) == NAMES
     assert sorted(p.stem for p in _build._CSRC.glob("*.cu")) == sorted(NAMES)
+    # each source's counter, named by the module that owns it
+    assert all(_build.SOURCES[name].counter is owner(name) for name in NAMES)
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -72,8 +76,11 @@ def test_launch_signature_matches_the_c_entry(name):
     elif name == "fused_tier_features":
         assert "pallas_factored.py::_kernel" in src
         assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
-    else:
+    elif name == "delta":
         assert "ops/delta.py::_DTYPES" in src
+    else:
+        assert "Replaces no Pallas kernel" in src and "mdct.py::_kernel_tables" in src
+        assert "wgmma" not in src and "mma.sync" not in src
 
 
 class FakeLibrary:
@@ -159,14 +166,14 @@ def test_a_tensor_off_the_current_device_enters_the_guard(monkeypatch, fake_cuda
 
 
 def test_launch_counts_read_and_move_the_three_counters(monkeypatch):
-    for name, n in zip(NAMES, (5, 6, 7)):
+    for name, n in zip(NAMES, (5, 6, 7, 8)):
         monkeypatch.setattr(owner(name), "launches", n)
-    assert _build.launch_counts() == (5, 6, 7)
-    _build.add_launches((1, 0, 2), -1)
+    assert _build.launch_counts() == (5, 6, 7, 8)
+    _build.add_launches((1, 0, 2, 3), -1)
     assert (tff.fused_factored_features.launches, tff.fused_tier_features.launches,
-            dops.launches) == (4, 6, 5)
-    _build.add_launches((1, 0, 2))
-    assert _build.launch_counts() == (5, 6, 7)
+            dops.launches, tmdct.launches) == (4, 6, 5, 5)
+    _build.add_launches((1, 0, 2, 3))
+    assert _build.launch_counts() == (5, 6, 7, 8)
 
 
 def test_the_library_is_loaded_once_and_typed_by_the_table(monkeypatch):
@@ -204,6 +211,11 @@ def card_case(name, device):
     from spectrograms_tpu_torch.ops.filterbanks import mel_filterbank
 
     g = torch.Generator().manual_seed(3)
+    if name == "mdct":
+        fwd, _ = tmdct._consts_for(tg.MdctParams.sine_window(512), False, torch.float32, device)
+        return ((lambda x: tmdct._mdct_impl(x, fwd, 512, 256)),
+                (lambda x: tmdct._mdct_impl(x, fwd.clone(), 512, 256)),
+                torch.randn((3, 16000), generator=g).to(device))
     if name == "delta":
         x = torch.randn((4, 40, 300), generator=g).to(device)
         return (lambda x: dops.launch(x, 9, 2)), (lambda x: dops.delta_reference(x, 9, 2)), x
@@ -232,6 +244,8 @@ def test_each_source_launches_once_on_the_current_stream_on_the_card(card, name)
     assert moved == tuple(int(n == name) for n in NAMES)
     if name == "delta":
         assert torch.equal(got, ref)
+    elif name == "mdct":    # against the dense chain
+        assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
     else:   # mel power; the tier's 1 pass rounds its products to bf16
         limit = (1e-4 if name == "fused_features" else 5e-3) * float(ref.abs().max())
         assert float((got - ref).abs().max()) <= limit
