@@ -383,7 +383,9 @@ class trace:
       ``tg.op.mdct._imdct_impl``, ``tg.op.decimate.decimate_pow2_framed``,
       ``tg.op.decimate.DecimationCascade.level_slice``,
       ``tg.op.pipeline._forward_impl`` (the plain framing and filterbank
-      route) and ``tg.op.pipeline._cqt_mr_forward``;
+      route), ``tg.op.pipeline._cqt_mr_forward``,
+      ``tg.op.reconstruct.griffin_lim`` (set-up, the iterations and the
+      last synthesis) and ``tg.op.reconstruct.mel_to_linear``;
     - ``tg.kernel.fused_features``, ``tg.kernel.fused_tier_features``: a
       launch of a CUDA kernel (layout, output allocation, the library
       call), each counted by its factory's ``.launches``.

@@ -14,6 +14,11 @@ sizes they are ``torch.fft.rfft``/``irfft``. The initial phase is uniform
 in [-π, π), drawn on the host from a fixed seed (so a CUDA run and a CPU run
 start alike, as the JAX package's fixed key does), or given as
 ``init_angles``.
+
+Spans ``tg.op.reconstruct.griffin_lim`` (set-up, the iteration loop and the
+last synthesis) and ``tg.op.reconstruct.mel_to_linear``. Counters, summed
+over calls: ``gl_iterations`` the iterations run, ``gl_matmul_calls`` and
+``gl_fft_calls`` the calls by route.
 """
 
 from __future__ import annotations
@@ -31,9 +36,14 @@ from .ops.filterbanks import mel_filterbank
 from .ops.framing import frame_signal, framed_matmul
 from .ops.ola import overlap_add
 from .params import MelParams, r2c_output_size
+from .spans import span
 from .windows import WindowType, make_window
 
 __all__ = ["griffin_lim", "mel_to_linear", "mel_filterbank_pinv", "invert_mel_db"]
+
+gl_iterations = 0    # Griffin-Lim iterations run
+gl_matmul_calls = 0  # griffin_lim calls that took the matmul route
+gl_fft_calls = 0     # griffin_lim calls that took the fft route
 
 
 def _initial_angles(init_angles, shape, dtype, device) -> torch.Tensor:
@@ -85,63 +95,68 @@ def griffin_lim(
         raise InvalidInputError("hop_size must be <= n_fft")
     if not (0.0 <= momentum < 1.0):
         raise InvalidInputError("momentum must be in [0, 1)")
-    n_frames = mag.shape[-1]
-    pad = n_fft // 2 if centre else 0
-    full_len = (n_frames - 1) * hop_size + n_fft
-    out_len = full_len - 2 * pad if length is None else int(length)
-    out_len = max(1, min(out_len, full_len - pad))
-    real_dt = torch.float64 if mag.dtype == torch.float64 else torch.float32
-    dev = mag.device
-    mag_t = mag.to(real_dt).transpose(-1, -2)  # (..., n_frames, n_bins)
-    angles = _initial_angles(init_angles, mag_t.shape, real_dt, dev)
-    w64 = make_window(window, n_fft, np.float64)
-    w = torch.tensor(w64, dtype=real_dt, device=dev)
+    global gl_iterations, gl_matmul_calls, gl_fft_calls
+    with span("tg.op.reconstruct.griffin_lim"):
+        n_frames = mag.shape[-1]
+        pad = n_fft // 2 if centre else 0
+        full_len = (n_frames - 1) * hop_size + n_fft
+        out_len = full_len - 2 * pad if length is None else int(length)
+        out_len = max(1, min(out_len, full_len - pad))
+        real_dt = torch.float64 if mag.dtype == torch.float64 else torch.float32
+        dev = mag.device
+        mag_t = mag.to(real_dt).transpose(-1, -2)  # (..., n_frames, n_bins)
+        angles = _initial_angles(init_angles, mag_t.shape, real_dt, dev)
+        w64 = make_window(window, n_fft, np.float64)
+        w = torch.tensor(w64, dtype=real_dt, device=dev)
 
-    norm = overlap_add((w * w).expand(n_frames, n_fft), hop_size)
-    safe_norm = torch.where(norm > 1e-10, norm, 1.0)
+        norm = overlap_add((w * w).expand(n_frames, n_fft), hop_size)
+        safe_norm = torch.where(norm > 1e-10, norm, 1.0)
 
-    def ola(frames):
-        out = overlap_add(frames, hop_size)
-        return torch.where(norm > 1e-10, out / safe_norm, out)
+        def ola(frames):
+            out = overlap_add(frames, hop_size)
+            return torch.where(norm > 1e-10, out / safe_norm, out)
 
-    if real_dt == torch.float32 and n_fft <= MATMUL_MAX_N_FFT:
-        if dev.type == "cuda":
-            check_true_f32()
-        # Analysis [C | S] with the window folded in; synthesis [Ci; Si],
-        # the window applied after. The spectrum rides as [re | im].
-        cs_f = torch.cat(rdft_matrices(n_fft, w64, real_dt, dev), dim=1)
-        cs_i = torch.cat(irdft_matrices(n_fft, real_dt, dev), dim=0)
+        if real_dt == torch.float32 and n_fft <= MATMUL_MAX_N_FFT:
+            if dev.type == "cuda":
+                check_true_f32()
+            # Analysis [C | S] with the window folded in; synthesis [Ci; Si],
+            # the window applied after. The spectrum rides as [re | im].
+            cs_f = torch.cat(rdft_matrices(n_fft, w64, real_dt, dev), dim=1)
+            cs_i = torch.cat(irdft_matrices(n_fft, real_dt, dev), dim=0)
 
-        def istft(ri):
-            return ola((ri @ cs_i) * w)
+            def istft(ri):
+                return ola((ri @ cs_i) * w)
 
-        ri = torch.cat([mag_t * torch.cos(angles), mag_t * torch.sin(angles)], dim=-1)
-        prev = ri
-        for _ in range(n_iter):
-            cand = framed_matmul(istft(ri), cs_f, n_fft, hop_size, centre=False)
-            acc = cand + momentum * (cand - prev)
-            acc_re, acc_im = acc.chunk(2, dim=-1)
-            a = torch.clamp_min(torch.sqrt(acc_re * acc_re + acc_im * acc_im), 1e-16)
-            ri = torch.cat([mag_t * acc_re / a, mag_t * acc_im / a], dim=-1)
-            prev = cand
-        x = istft(ri)
-    else:
+            ri = torch.cat([mag_t * torch.cos(angles), mag_t * torch.sin(angles)], dim=-1)
+            prev = ri
+            for _ in range(n_iter):
+                cand = framed_matmul(istft(ri), cs_f, n_fft, hop_size, centre=False)
+                acc = cand + momentum * (cand - prev)
+                acc_re, acc_im = acc.chunk(2, dim=-1)
+                a = torch.clamp_min(torch.sqrt(acc_re * acc_re + acc_im * acc_im), 1e-16)
+                ri = torch.cat([mag_t * acc_re / a, mag_t * acc_im / a], dim=-1)
+                prev = cand
+            x = istft(ri)
+            gl_matmul_calls += 1
+        else:
 
-        def istft(spec_t):
-            return ola(torch.fft.irfft(spec_t, n=n_fft, dim=-1) * w)
+            def istft(spec_t):
+                return ola(torch.fft.irfft(spec_t, n=n_fft, dim=-1) * w)
 
-        def stft(x):
-            # x is the padded overlap-add signal, (n_frames-1)*hop + n_fft long
-            return torch.fft.rfft(frame_signal(x, n_fft, hop_size, centre=False) * w, dim=-1)
+            def stft(x):
+                # x is the padded overlap-add signal, (n_frames-1)*hop + n_fft long
+                return torch.fft.rfft(frame_signal(x, n_fft, hop_size, centre=False) * w, dim=-1)
 
-        spec = mag_t * torch.exp(1j * angles)
-        prev = spec
-        for _ in range(n_iter):
-            cand = stft(istft(spec))
-            accel = cand + momentum * (cand - prev)
-            spec, prev = mag_t * (accel / torch.clamp_min(accel.abs(), 1e-16)), cand
-        x = istft(spec)
-    return x[..., pad : pad + out_len]
+            spec = mag_t * torch.exp(1j * angles)
+            prev = spec
+            for _ in range(n_iter):
+                cand = stft(istft(spec))
+                accel = cand + momentum * (cand - prev)
+                spec, prev = mag_t * (accel / torch.clamp_min(accel.abs(), 1e-16)), cand
+            x = istft(spec)
+            gl_fft_calls += 1
+        gl_iterations += n_iter
+        return x[..., pad : pad + out_len]
 
 
 @lru_cache(maxsize=32)
@@ -165,9 +180,10 @@ def mel_to_linear(mel_power, mel_params: MelParams, sample_rate_hz: float, n_fft
     m = torch.as_tensor(result_data(mel_power), device=resolve_device(device))
     if m.is_cuda and m.dtype == torch.float32:
         check_true_f32()
-    pinv = torch.tensor(mel_filterbank_pinv(mel_params, sample_rate_hz, n_fft),
-                        dtype=m.dtype, device=m.device)
-    return torch.clamp_min(pinv @ m, 0.0)
+    with span("tg.op.reconstruct.mel_to_linear"):
+        pinv = torch.tensor(mel_filterbank_pinv(mel_params, sample_rate_hz, n_fft),
+                            dtype=m.dtype, device=m.device)
+        return torch.clamp_min(pinv @ m, 0.0)
 
 
 def invert_mel_db(
