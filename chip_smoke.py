@@ -8,15 +8,16 @@ Run from the repository root, with no arguments::
 Two feature kernels: ``csrc/fused_features.cu`` (f32, the ``precision=HIGH``
 path) and ``csrc/fused_tier_features.cu`` (bf16 tensor cores, the
 ``precision=DEFAULT`` and ``method="pallas:x2"`` tiers); ``csrc/delta.cu``
-(``tg.delta`` on CUDA tensors) and ``csrc/mdct.cu`` (the batched MDCT and
-IMDCT at hop = N on float32 CUDA tensors). Phases, each
+(``tg.delta`` on CUDA tensors), ``csrc/mdct.cu`` (the batched MDCT and
+IMDCT at hop = N on float32 CUDA tensors) and ``csrc/griffin_lim.cu`` (one
+fast Griffin-Lim iteration a launch on float32 CUDA tensors). Phases, each
 printing lines (any failure exits non-zero, nothing is caught); the f32
 kernel's lines carry the values that the first recorded runs of its
 first (radix-2) and current (radix-8) designs printed ("recorded: ...")
 beside this run's:
 
 1. the card (``nvidia-smi`` name and power limit) and the software versions;
-2. build of the four sources, one ``nvcc`` each, started together
+2. build of the five sources, one ``nvcc`` each, started together
    (seconds, ptxas registers/spills);
 3. each kernel against its plain PyTorch version on the card, same inputs
    from a numpy seed: the f32 kernel at eight geometries, the tier kernel at
@@ -66,7 +67,16 @@ beside this run's:
    (a plan-cache hit, one launch a call); config 1 (``LinearPowerPlan`` at
    float64) against a numpy f64 STFT; ``StftPlan`` on the batch against
    ``rfft`` of f64 frames, ``istft`` back and ``compute_frame``; Griffin-Lim
-   (32 iterations, both routes) against the port's CPU run of the same seed;
+   (32 iterations, the kernel at f32 and the fft route at f64) against the
+   port's CPU run of the same seed; then (8f, ``griffin_lim_phase``) the TTS
+   cell's batch (32 × 220500 at 22.05 kHz, mel-80 dB inverted to a
+   magnitude, 1024/256): one ``griffin_lim`` call of 32 iterations is 33
+   launches of ``csrc/griffin_lim.cu`` and no chain; the kernel against its
+   twin and the chain after one iteration, and the medians of the TTS cell's
+   ``sc_self_err`` and ``wave_err`` against a float64 Griffin-Lim from the
+   same phase after 32, beside the chain's; an iteration's launch timed
+   (median of 50, L2 flushed) beside its bytes bound, the chain's iteration
+   and ``gl_task``'s bound;
 9. config 4 of ``benchmarks/suite.py`` (``config4_phase``): 64 × 5 s of
    noise at 44.1 kHz through ``FeatureSet([CqtPowerPlan (CQT-84 from C1,
    the octave stack the policy elects), multirate chroma, MDCT round
@@ -656,14 +666,20 @@ def serving_phase(tg, ff, dev, card, tier_bound) -> dict:
 # built in f64 at 1e-4 of the peak, its iSTFT at 1e-4 of the signal's peak
 # (tests/test_torch_port_stft.py's f32 bar). Griffin-Lim on the card against
 # the port's CPU run of the same seed: at f64 (the fft route) 1e-9 of the
-# peak; at f32 (the matmul route) both sum in f32 in their own order and the
-# momentum-0.99 iteration amplifies that (tests/test_torch_port_reconstruct.py
-# holds the port against the JAX package at 2e-2 of the peak after 32
-# iterations), so 1e-2 of the peak, and the spectral convergence within 1e-4.
+# peak; at f32 (the kernel on the card, the matmul route on the CPU) both sum
+# in f32 in their own order and the momentum-0.99 iteration amplifies that
+# (tests/test_torch_port_reconstruct.py holds the port against the JAX
+# package at 2e-2 of the peak after 32 iterations), so 1e-2 of the peak, and
+# the spectral convergence within 1e-4. 8f: the kernel against its twin and
+# the chain after one iteration at 1e-4 of a row's peak (on the rows' output
+# span: the padding's edge samples are divided by an overlap-added window
+# near 1e-9), and after 32 the TTS cell's medians against float64 within
+# the cell's limits (portbench/configs/tts_mel80_gl32.json).
 SURF_DB = 2e-2
 SURF_F64 = 1e-10
 SURF_STFT = 1e-4
 GL_F64, GL_F32, GL_SC = 1e-9, 1e-2, 1e-4
+GL_ONE, GL_SC_SELF, GL_WAVE = 1e-4, 1e-5, 0.03
 
 
 def surface_phase(tg, ff, dev, card, xb, tier_bound) -> None:
@@ -878,7 +894,7 @@ def surface_phase(tg, ff, dev, card, xb, tier_bound) -> None:
             sc0, sc32, sc_cpu = conv(y0), conv(y32), conv(ycpu.to(dev))
             gl_ms = time_ms(lambda: tg.griffin_lim(mag, 1024, 256, n_iter=32, length=16000),
                             reps=20, warmup=2)[0]
-        route = "matmul" if dt == np.float32 else "fft"
+        route = "kernel" if dt == np.float32 else "fft"
         check(f"griffin-lim {np.dtype(dt).name}",
               y32.device.type == "cuda" and sc32 < sc0 and gerr <= tol
               and (dt == np.float64 or abs(sc32 - sc_cpu) <= GL_SC),
@@ -907,6 +923,113 @@ C4_MID, C4_ALL = 5e-5, 5e-3
 C4_F64 = 1e-5
 C4_MDCT, C4_FOLD = 1e-3, 1e-5
 C4_GAMMA = 1e-9
+
+
+def griffin_lim_phase(tg, dev, card, rows: int = 32, n: int = 220500) -> dict:
+    """Phase 8f: ``csrc/griffin_lim.cu`` on the TTS cell's batch (see the
+    module docstring). Returns the kernel's entry of the ``kernels`` line."""
+    rc = sys.modules["spectrograms_tpu_torch.reconstruct"]
+
+    def check(label, ok, reading):
+        print(f"[8f {label}] {reading} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"griffin-lim phase: {label}")
+
+    t_phase = time.perf_counter()
+    sr, n_fft, hop = 22050.0, 1024, 256
+    on = dict(device=dev)
+    mel = tg.MelParams(80, 0.0, 8000.0, tg.MelNorm.SLANEY)
+    plan = tg.MelDbPlan(tg.SpectrogramParams(tg.StftParams(n_fft, hop), sr), mel,
+                        tg.LogParams(-80.0), dtype="float32", **on)
+    xg = torch.from_numpy(signal(np.random.default_rng(SEED + 8), rows, n, sr)).to(dev)
+    with torch.no_grad():
+        power = tg.mel_to_linear(torch.pow(10.0, plan.compute_batch(xg) / 10.0), mel, sr, n_fft,
+                                 **on)
+        mag = torch.sqrt(power)
+        rc.launches = rc.gl_kernel_calls = rc.gl_matmul_calls = rc.gl_fft_calls = 0
+        y32 = tg.griffin_lim(mag, n_fft, hop, n_iter=32, length=n, **on)
+        torch.cuda.synchronize()
+        counts = (rc.launches, rc.gl_kernel_calls, rc.gl_matmul_calls, rc.gl_fft_calls)
+
+        def chain(m, n_iter):   # the route before the kernel: an input that requires grad
+            return tg.griffin_lim(m.clone().requires_grad_(True), n_fft, hop, n_iter=n_iter,
+                                  length=n, **on)
+
+        y1 = tg.griffin_lim(mag, n_fft, hop, n_iter=1, length=n, **on)
+        mag_t = mag.transpose(-1, -2)
+        angles = rc._initial_angles(None, mag_t.shape, torch.float32, dev)
+        w64 = np.asarray(tg.make_window(tg.WindowType.hanning, n_fft), np.float64)
+        mag_k, angles_k, tables, _ = rc._kernel_inputs(mag_t, angles, w64, n_fft, hop)
+        span = slice(n_fft // 2, n_fft // 2 + n)
+        twin1 = rc.griffin_lim_kernel_twin(mag_k, angles_k, tables, n_fft, hop, 1, 0.99)[:, span]
+        chain1 = chain(mag, 1)
+        one = [float(((y1 - r).abs().amax(-1) / r.abs().amax(-1)).max()) for r in (twin1, chain1)]
+        chain32 = chain(mag, 32)
+        mag64 = mag.to(torch.float64)
+        ref64 = tg.griffin_lim(mag64, n_fft, hop, n_iter=32, length=n, **on)
+
+        def medians(y):
+            def sc(z):
+                s = tg.stft(z.to(torch.float64), n_fft, hop, **on).abs()[..., : mag64.shape[-1]]
+                return (torch.linalg.vector_norm(s - mag64, dim=(-2, -1))
+                        / torch.linalg.vector_norm(mag64, dim=(-2, -1)))
+            sc_ref = sc(ref64)
+            wave = (y.to(torch.float64) - ref64).abs().amax(-1) / ref64.abs().amax(-1)
+            return float(((sc(y) - sc_ref).abs() / sc_ref).median()), float(wave.median())
+
+        k_sc, k_wave = medians(y32)
+        c_sc, c_wave = medians(chain32)
+    check("counts", counts == (33, 1, 0, 0),
+          f"{card} | griffin_lim(32 iterations) on {tuple(mag.shape)}: launches, kernel, matmul, fft "
+          f"calls {counts} (want (33, 1, 0, 0))")
+    check("one iteration", max(one) <= GL_ONE,
+          f"{card} | kernel vs its twin {one[0]:.3e}, vs the chain {one[1]:.3e} of a row's peak "
+          f"(limit {GL_ONE:g})")
+    check("32 iterations", k_sc <= GL_SC_SELF and k_wave <= GL_WAVE,
+          f"{card} | against float64 from the same phase, medians over the rows: sc_self_err "
+          f"{k_sc:.3e} (limit {GL_SC_SELF:g}; chain {c_sc:.3e}), wave_err {k_wave:.3e} "
+          f"(limit {GL_WAVE:g}; chain {c_wave:.3e})")
+    del y1, twin1, chain1, chain32, ref64, mag64
+    rows, n_frames = mag_k.shape[:2]
+    length = (n_frames - 1) * hop + n_fft
+    prev = [torch.empty((rows, n_frames, n_fft // 2 + 2, 2), device=dev) for _ in range(2)]
+    ys = [torch.empty((rows, length), device=dev) for _ in range(2)]
+    with torch.no_grad():
+        rc._kernel_step(0, mag_k, angles_k, None, prev[0], None, ys[0], tables, n_fft, hop, 0.99)
+        it_ms, it_p90 = time_ms(lambda: rc._kernel_step(1, mag_k, angles_k, prev[0], prev[1],
+                                                        ys[0], ys[1], tables, n_fft, hop, 0.99),
+                                reps=50)
+        start_ms = time_ms(lambda: rc._kernel_step(0, mag_k, angles_k, None, prev[0], None,
+                                                   ys[0], tables, n_fft, hop, 0.99), reps=50)[0]
+        twin_ms = time_ms(lambda: rc._twin_step(1, mag_k, angles_k, prev[0], prev[1], ys[0],
+                                                ys[1], tables, n_fft, hop, 0.99), reps=10)[0]
+        chain_ms = time_ms(lambda: chain(mag, 32), reps=5, warmup=1)[0] / 32
+    bins = n_fft // 2 + 1
+    # bytes of one launch: mag read, the spectrum read and written (complex), the signal
+    # read and written, each once
+    nbytes = 4.0 * rows * n_frames * bins + 16.0 * rows * n_frames * bins + 8.0 * rows * length
+    bound = nbytes / H100_BYTES_PER_S * 1e3
+    frames = rows * n_frames
+    task_bytes = 4.0 * frames * bins + 32.0 * frames * bins + 8.0 * rows * length
+    print(f"[8f times] {card} | median/p90 of 50 (L2 flushed, device spin): iteration "
+          f"{it_ms:.4f}/{it_p90:.4f} ms, start {start_ms:.4f} ms | bytes bound (3.35 TB/s) "
+          f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB, {bound / it_ms:.1%} of it); gl_task's "
+          f"{task_bytes / H100_BYTES_PER_S * 1e3:.4f} ms ({task_bytes / 1e6:.1f} MB) | its twin "
+          f"{twin_ms:.4f} ms, the chain's iteration {chain_ms:.4f} ms (median of 5 calls / 32)")
+    print(f"[8f phase] {time.perf_counter() - t_phase:.1f} s")
+    return {
+        "name": "griffin_lim",
+        "route": "cuda",
+        "source": "spectrograms_tpu_torch/csrc/griffin_lim.cu",
+        "replaces": None,
+        "launches": counts[0],
+        "max_abs_err": max(one),
+        "ms": it_ms,
+        "plain_ms": twin_ms,
+        "bound_ms": bound,
+        "bound_by": "bytes",
+        "library_ms": chain_ms,
+    }
 
 
 def fresh_trace(fn: str, attempts: int = 3):
@@ -2558,7 +2681,7 @@ def main() -> None:
         fail("TF32 matmuls are enabled; the plain references need true f32")
 
     # ---- 2. build -------------------------------------------------------
-    # the host library (g++) builds beside the four nvcc builds
+    # the host library (g++) builds beside the five nvcc builds
     from spectrograms_tpu_torch.runtime import native
     native_build = {}
 
@@ -2578,7 +2701,7 @@ def main() -> None:
             if "registers" in line or "spill" in line
         )
         print(f"[2 build] {name}.cu sm_90a in {seconds:.2f} s "
-              f"(all four, in parallel, loaded in {time.perf_counter() - t0:.2f} s) | {ptxas}")
+              f"(all five, in parallel, loaded in {time.perf_counter() - t0:.2f} s) | {ptxas}")
     native_thread.join()
     if "path" not in native_build or not native.native_available():
         fail("the native host library native/sgtpu.cpp did not build")
@@ -3191,6 +3314,7 @@ def main() -> None:
     del yp, exact_mfcc
     surface_phase(tg, ff, dev, card, xb, tier_bound)
     del xb
+    gl_entry = griffin_lim_phase(tg, dev, card)
     mdct_entry = config4_phase(tg, ff, dev, card)
     fft_image_phase(tg, ff, dev, card)
     tuning_parallel_phase(tg, ff, dev, card, phase7_rates)
@@ -3233,7 +3357,7 @@ def main() -> None:
         "bound_ms": delta_bound_ms,
         "bound_by": "bytes",
         "library_ms": None,
-    }, mdct_entry]}))
+    }, mdct_entry, gl_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -177,6 +177,7 @@ SOURCES = {source.name: source for source in (
     Source("fused_tier_features", [_P] * 17 + [_I, _LL] + [_I] * 23 + [_F]),
     Source("delta", [_P, _P, _LL] + [_I] * 9),
     Source("mdct", [_P] * 3 + [_LL] + [_I] * 4),
+    Source("griffin_lim", [_P, _P, _LL] + [_P] * 5 + [_LL, _I, _I, _I, _F, _I]),
 )}
 
 

@@ -1,5 +1,5 @@
 """``ops/_build.py``'s table of the CUDA sources, ``SOURCES``, and its one
-launch call, ``Source.launch``, through which all four kernels launch.
+launch call, ``Source.launch``, through which all five kernels launch.
 
 On the CPU, with a fake library in place of a built one:
 
@@ -12,7 +12,7 @@ On the CPU, with a fake library in place of a built one:
 - a launch of another build of a source (a stage variant) is not counted;
 - the device guard is entered only for tensors off the current device, and
   the stream is that device's current raw stream;
-- ``launch_counts``/``add_launches`` read and move the four counters.
+- ``launch_counts``/``add_launches`` read and move the five counters.
 
 The tests marked ``card`` launch each source once on a side stream and hold
 it against its plain version; they skip without CUDA. This file imports no
@@ -33,13 +33,15 @@ from spectrograms_tpu_torch.ops import _build
 from spectrograms_tpu_torch.ops import delta as dops
 from spectrograms_tpu_torch.ops import fused_factored as tff
 
-NAMES = ["fused_features", "fused_tier_features", "delta", "mdct"]
+NAMES = ["fused_features", "fused_tier_features", "delta", "mdct", "griffin_lim"]
 tmdct = sys.modules["spectrograms_tpu_torch.mdct"]
+trc = sys.modules["spectrograms_tpu_torch.reconstruct"]
 
 
 def owner(name):
     return {"fused_features": tff.fused_factored_features,
-            "fused_tier_features": tff.fused_tier_features, "delta": dops, "mdct": tmdct}[name]
+            "fused_tier_features": tff.fused_tier_features, "delta": dops, "mdct": tmdct,
+            "griffin_lim": trc}[name]
 
 
 def test_the_table_lists_the_three_sources_in_counter_order():
@@ -78,8 +80,11 @@ def test_launch_signature_matches_the_c_entry(name):
         assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
     elif name == "delta":
         assert "ops/delta.py::_DTYPES" in src
-    else:
+    elif name == "mdct":
         assert "Replaces no Pallas kernel" in src and "mdct.py::_kernel_tables" in src
+        assert "wgmma" not in src and "mma.sync" not in src
+    else:
+        assert "Replaces no Pallas kernel" in src and "reconstruct.py::_kernel_tables_np" in src
         assert "wgmma" not in src and "mma.sync" not in src
 
 
@@ -166,14 +171,14 @@ def test_a_tensor_off_the_current_device_enters_the_guard(monkeypatch, fake_cuda
 
 
 def test_launch_counts_read_and_move_the_three_counters(monkeypatch):
-    for name, n in zip(NAMES, (5, 6, 7, 8)):
+    for name, n in zip(NAMES, (5, 6, 7, 8, 9)):
         monkeypatch.setattr(owner(name), "launches", n)
-    assert _build.launch_counts() == (5, 6, 7, 8)
-    _build.add_launches((1, 0, 2, 3), -1)
+    assert _build.launch_counts() == (5, 6, 7, 8, 9)
+    _build.add_launches((1, 0, 2, 3, 4), -1)
     assert (tff.fused_factored_features.launches, tff.fused_tier_features.launches,
-            dops.launches, tmdct.launches) == (4, 6, 5, 5)
-    _build.add_launches((1, 0, 2, 3))
-    assert _build.launch_counts() == (5, 6, 7, 8)
+            dops.launches, tmdct.launches, trc.launches) == (4, 6, 5, 5, 5)
+    _build.add_launches((1, 0, 2, 3, 4))
+    assert _build.launch_counts() == (5, 6, 7, 8, 9)
 
 
 def test_the_library_is_loaded_once_and_typed_by_the_table(monkeypatch):
@@ -211,6 +216,15 @@ def card_case(name, device):
     from spectrograms_tpu_torch.ops.filterbanks import mel_filterbank
 
     g = torch.Generator().manual_seed(3)
+    if name == "griffin_lim":    # the start launch, against its twin
+        mag_t = torch.rand((2, 40, 257), generator=g).to(device)
+        angles = trc._initial_angles(None, mag_t.shape, torch.float32, device)
+        w64 = tg.make_window(tg.WindowType.hanning, 512).astype("float64")
+        mag_k, angles_k, tables, _ = trc._kernel_inputs(mag_t, angles, w64, 512, 128)
+        return ((lambda m: trc._kernel_run(m, angles_k, tables, 512, 128, 0, 0.99,
+                                            trc._kernel_step)),
+                (lambda m: trc.griffin_lim_kernel_twin(m, angles_k, tables, 512, 128, 0, 0.99)),
+                mag_k)
     if name == "mdct":
         fwd, _ = tmdct._consts_for(tg.MdctParams.sine_window(512), False, torch.float32, device)
         return ((lambda x: tmdct._mdct_impl(x, fwd, 512, 256)),
@@ -244,7 +258,7 @@ def test_each_source_launches_once_on_the_current_stream_on_the_card(card, name)
     assert moved == tuple(int(n == name) for n in NAMES)
     if name == "delta":
         assert torch.equal(got, ref)
-    elif name == "mdct":    # against the dense chain
+    elif name in ("mdct", "griffin_lim"):    # against the dense chain, the twin
         assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
     else:   # mel power; the tier's 1 pass rounds its products to bf16
         limit = (1e-4 if name == "fused_features" else 5e-3) * float(ref.abs().max())
