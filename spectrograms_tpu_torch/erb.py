@@ -14,9 +14,15 @@ Counterpart of ``spectrograms_tpu.erb``, with the reference's two forms
 
 (b) runs in float64 on every device, as the JAX package does under x64. Its
 ``scan`` lowering steps through the frame's samples in the reference's
-order, all (band, frame) pairs at once (the state reset keeps frames
+order, all (clip, band, frame) triples at once (the state reset keeps frames
 independent, ``erb.rs:529-541``); its ``parallel`` lowering is a log-depth
-doubling scan over time.
+doubling scan over time, one clip at a time. ``batched=True`` (the port's
+own keyword) takes a (B, n) batch of clips.
+
+Span ``tg.op.erb.gammatone_iir_spectrogram`` (the bank and the dB).
+Counters, summed over calls: ``gt_calls``; ``gt_scan_calls`` and
+``gt_parallel_calls`` by lowering; ``gt_filtered_samples`` the samples
+the cascade filtered, B × n_bands × n_frames × frame_size a call.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from .dtypes import parse_dtype, resolve_device
 from .errors import InvalidInputError
 from .ops.filterbanks import erb_center_frequencies, erb_filterbank
 from .params import ErbParams
+from .spans import span
 
 __all__ = [
     "ErbFilterbank",
@@ -40,6 +47,11 @@ __all__ = [
 
 _EAR_Q = 9.26449
 _MIN_BW = 24.7
+
+gt_calls = 0             # gammatone_iir_spectrogram calls
+gt_scan_calls = 0        # calls that took the scan lowering
+gt_parallel_calls = 0    # calls that took the parallel lowering
+gt_filtered_samples = 0  # B × n_bands × n_frames × frame_size, summed over calls
 
 
 class ErbFilterbank:
@@ -140,25 +152,36 @@ def make_iir_bank(center_freqs, sample_rate: float):
     return _iir_bank_cached(key, float(sample_rate))
 
 
+@lru_cache(maxsize=16)
+def _device_tables(cfs_key, sample_rate: float, frame_size: int, device: torch.device):
+    """(Hann window with an (N−1) denominator, a, b) as float64 tensors on
+    ``device``, copied there once per bank."""
+    a, b = _iir_bank_cached(cfs_key, sample_rate)
+    n1 = frame_size - 1
+    window = 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(frame_size) / n1)
+    f64 = dict(dtype=torch.float64, device=device)
+    return torch.tensor(window, **f64), torch.tensor(a, **f64), torch.tensor(b, **f64)
+
+
 def _gammatone_frames_t(x, window, frame_size: int, hop_size: int, n_frames: int):
-    """(frame_size, n_frames) windowed frames, time-major: the framing that
-    both lowerings share."""
-    frames = x.unfold(0, frame_size, hop_size)[:n_frames]
-    return (frames * window).T
+    """(frame_size, ..., n_frames) windowed frames of the (..., n) signal,
+    time-major: the framing that both lowerings share."""
+    frames = x.unfold(-1, frame_size, hop_size)[..., :n_frames, :]
+    return (frames * window).movedim(-1, 0)
 
 
 def _gammatone_impl(x, window, a, b, frame_size: int, hop_size: int, n_frames: int):
     """The cascade one sample at a time, in the reference's order, for every
-    (band, frame) pair at once; the squared output accumulates as it goes."""
+    (..., band, frame) at once; the squared output accumulates as it goes."""
     xs = _gammatone_frames_t(x, window, frame_size, hop_size, n_frames)
-    n_bands = a.shape[0]
+    shape = (*x.shape[:-1], a.shape[0], n_frames)
     a0, a1 = a[:, :, 0, None], a[:, :, 1, None]  # (n_bands, 4, 1)
     b1, b2 = b[:, 0, None], b[:, 1, None]  # (n_bands, 1)
-    z0 = x.new_zeros((4, n_bands, n_frames))
-    z1 = x.new_zeros((4, n_bands, n_frames))
-    acc = x.new_zeros((n_bands, n_frames))
+    z0 = x.new_zeros((4, *shape))
+    z1 = x.new_zeros((4, *shape))
+    acc = x.new_zeros(shape)
     for t in range(frame_size):
-        sig = xs[t].expand(n_bands, n_frames)
+        sig = xs[t].unsqueeze(-2).expand(shape)
         new_z0, new_z1 = [], []
         for s in range(4):
             y = a0[:, s] * sig + z0[s]
@@ -209,7 +232,7 @@ def _gammatone_parallel_impl(x, window, a, b, frame_size: int, hop_size: int, n_
 
 def gammatone_iir_spectrogram(samples, sample_rate: float, frame_size: int, hop_size: int,
                               erb_params: ErbParams, dtype=None, method: str = "auto",
-                              device=None):
+                              device=None, batched: bool = False):
     """(spectrogram (n_bands, n_frames), center_freqs) through the exact IIR bank.
 
     Frames take a Hann window with an (N−1) denominator; each band's output
@@ -222,29 +245,48 @@ def gammatone_iir_spectrogram(samples, sample_rate: float, frame_size: int, hop_
     reference's order (a handful of small operations a sample, so
     ``frame_size`` × a few dozen launches on the card); ``"parallel"`` is the
     log-depth doubling scan; ``"auto"`` is ``"scan"``, as in JAX.
+
+    ``batched=True`` takes ``samples`` as a (B, n) batch of clips and returns
+    a (B, n_bands, n_frames) spectrogram, each row equal to the call on that
+    clip alone; ``scan`` runs every clip at once, ``parallel`` one clip at a
+    time. Otherwise ``samples`` is flattened to one signal, as in JAX.
     """
+    global gt_calls, gt_scan_calls, gt_parallel_calls, gt_filtered_samples
     if sample_rate <= 0.0:
         raise InvalidInputError("sample_rate must be > 0")
     if method not in ("auto", "scan", "parallel"):
         raise InvalidInputError(f"method must be auto/scan/parallel, got {method!r}")
     dt = parse_dtype(dtype if dtype is not None else getattr(samples, "dtype", None))
     dev = resolve_device(device)
-    x = torch.as_tensor(samples).to(device=dev, dtype=torch.float64).reshape(-1)
-    if x.shape[0] < frame_size:
-        raise InvalidInputError("signal is shorter than frame_size")
+    with span("tg.op.erb.gammatone_iir_spectrogram"):
+        x = torch.as_tensor(samples)
+        if batched and x.ndim != 2:
+            raise InvalidInputError(
+                f"batched=True takes (batch, n) samples, got shape {tuple(x.shape)}")
+        x = x.to(device=dev, dtype=torch.float64)
+        if not batched:
+            x = x.reshape(-1)
+        if x.shape[-1] < frame_size:
+            raise InvalidInputError("signal is shorter than frame_size")
 
-    cfs = gammatone_center_frequencies(erb_params)
-    a, b = make_iir_bank(cfs, sample_rate)
-    n1 = frame_size - 1
-    window = 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(frame_size) / n1)
+        cfs = gammatone_center_frequencies(erb_params)
+        window, a, b = _device_tables(tuple(cfs.tolist()), float(sample_rate), int(frame_size),
+                                      dev)
+        n_frames = 1 + (x.shape[-1] - frame_size) // hop_size
+        args = (window, a, b, int(frame_size), int(hop_size), int(n_frames))
+        if method == "parallel":
+            gt_parallel_calls += 1
+            if batched:
+                out = torch.stack([_gammatone_parallel_impl(row, *args) for row in x])
+            else:
+                out = _gammatone_parallel_impl(x, *args)
+        else:
+            gt_scan_calls += 1
+            out = _gammatone_impl(x, *args)
+        gt_calls += 1
+        gt_filtered_samples += out.numel() * int(frame_size)
 
-    n_frames = 1 + (x.shape[0] - frame_size) // hop_size
-    impl = _gammatone_parallel_impl if method == "parallel" else _gammatone_impl
-    f64 = dict(dtype=torch.float64, device=dev)
-    out = impl(x, torch.tensor(window, **f64), torch.tensor(a, **f64), torch.tensor(b, **f64),
-               int(frame_size), int(hop_size), int(n_frames))
-
-    if erb_params.db_floor is not None:
-        eps = 10.0 ** (erb_params.db_floor / 10.0)
-        out = 10.0 * torch.log10(torch.clamp_min(out, eps))
-    return out.to(dt), cfs
+        if erb_params.db_floor is not None:
+            eps = 10.0 ** (erb_params.db_floor / 10.0)
+            out = 10.0 * torch.log10(torch.clamp_min(out, eps))
+        return out.to(dt), cfs

@@ -371,8 +371,12 @@ class LogHzParams:
 class ErbSpacing(enum.Enum):
     """ERB center-frequency spacing strategy."""
 
-    LINEAR = "linear"  # Glasberg & Moore 1990, uniform in ERB-rate
-    APPLE_TR35 = "apple_tr35"  # Patterson-Holdsworth geometric
+    # evenly spaced ERB bandwidths 24.7·(4.37·f/1000 + 1) (Glasberg & Moore
+    # 1990), which are affine in f: centres uniform in Hz
+    LINEAR = "linear"
+    # Patterson-Holdsworth (Slaney): centres uniform on the ERB-rate scale
+    # ln(1 + f/(EarQ·minBW)), f_min included and f_max left out
+    APPLE_TR35 = "apple_tr35"
 
 
 @dataclass(frozen=True)

@@ -385,7 +385,9 @@ class trace:
       ``tg.op.pipeline._forward_impl`` (the plain framing and filterbank
       route), ``tg.op.pipeline._cqt_mr_forward``,
       ``tg.op.reconstruct.griffin_lim`` (set-up, the iterations and the
-      last synthesis) and ``tg.op.reconstruct.mel_to_linear``;
+      last synthesis), ``tg.op.reconstruct.mel_to_linear`` and
+      ``tg.op.erb.gammatone_iir_spectrogram`` (the gammatone bank and its
+      dB);
     - ``tg.kernel.fused_features``, ``tg.kernel.fused_tier_features``: a
       launch of a CUDA kernel (layout, output allocation, the library
       call), each counted by its factory's ``.launches``.

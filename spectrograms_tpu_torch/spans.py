@@ -20,7 +20,8 @@ The names, one prefix a layer:
 - ``tg.member.<name>``: one member of a ``FeatureSet`` (a plan's class, or
   a callable's ``__name__``);
 - ``tg.op.<module>.<function>``: a function that runs torch operations
-  (``tg.op.mfcc.delta``, ``tg.op.decimate.decimate_pow2_framed``, ...);
+  (``tg.op.mfcc.delta``, ``tg.op.decimate.decimate_pow2_framed``,
+  ``tg.op.erb.gammatone_iir_spectrogram``, ...);
 - ``tg.kernel.<source>``: the launch of one of the CUDA kernels
   (``fused_features``, ``fused_tier_features``): layout, output
   allocation and the call into the library.

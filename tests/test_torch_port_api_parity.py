@@ -38,6 +38,7 @@ PORT_KEYWORDS = {
     "device": "results and plans live on a torch device, CUDA unless asked",
     "precision": "the spectrogram one-shots take a plan's tier, as the plans do",
     "init_angles": "griffin_lim takes a starting phase, to compare it with JAX's draw",
+    "batched": "gammatone_iir_spectrogram takes a (B, n) batch of clips in one call",
 }
 # Names that only the port's __all__ has.
 PORT_NAMES = {

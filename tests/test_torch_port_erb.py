@@ -6,7 +6,10 @@
   JAX's ``scan`` at f64, at 1e-9 relative (the JAX scalar-reference test,
   ``tests/test_cqt_erb.py:93-124``), and against that scalar reference;
   ``parallel`` against ``scan`` at JAX's 1e-10; the dB floor; the
-  validation errors; the ERB cases of ``tests/test_cqt_erb.py`` on the port.
+  validation errors; the ERB cases of ``tests/test_cqt_erb.py`` on the port;
+- the port's ``batched=True``: each row bit-equal to the call on that clip
+  alone and within 1e-9 of JAX's scan, a single signal refused, the
+  counters, the device tables made once a bank.
 """
 
 import importlib
@@ -155,6 +158,77 @@ def test_gammatone_validation_matches_jax():
             m.gammatone_iir_spectrogram(np.ones(2000), SR, 1024, 256, p, method="bogus", **kw)
         with pytest.raises(m.InvalidInputError, match="sample_rate"):
             m.gammatone_iir_spectrogram(np.ones(2000), 0.0, 1024, 256, p, **kw)
+
+
+BATCH = dict(sample_rate=SR, frame_size=320, hop_size=160,
+             erb_params=tg.ErbParams(8, 50.0, 8000.0, db_floor=-80.0), **CPU)
+
+
+def _clips(rows=3, n=4000, seed=1):
+    return torch.from_numpy(0.3 * np.random.default_rng(seed).standard_normal((rows, n)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("method", ["scan", "parallel"])
+def test_gammatone_batched_equals_stacked_single_calls(method, dtype):
+    """Same arithmetic in the same order: each row bit for bit."""
+    x = _clips()
+    got, cfs = tg.gammatone_iir_spectrogram(x, dtype=dtype, method=method, batched=True,
+                                            **BATCH)
+    rows = [tg.gammatone_iir_spectrogram(r, dtype=dtype, method=method, **BATCH) for r in x]
+    assert got.dtype == getattr(torch, dtype) and tuple(got.shape) == (3, 8, 24)
+    assert torch.equal(got, torch.stack([g for g, _ in rows]))
+    np.testing.assert_array_equal(cfs, rows[0][1])
+
+
+@pytest.mark.parametrize("method", ["scan", "parallel"])
+def test_gammatone_batched_matches_jax_scan(method):
+    x = _clips(rows=2, n=5000, seed=4)
+    mk = lambda m: m.ErbParams(16, 50.0, 8000.0)
+    got, _ = tg.gammatone_iir_spectrogram(x, SR, 300, 170, mk(tg), dtype="float64",
+                                          method=method, batched=True, **CPU)
+    for row, g in zip(x.numpy(), got):
+        want, _ = sg.gammatone_iir_spectrogram(row, SR, 300, 170, mk(sg), dtype="float64",
+                                               method="scan")
+        np.testing.assert_allclose(g.numpy(), np.asarray(want), rtol=1e-9, atol=0)
+
+
+@pytest.mark.parametrize("shape", [(4000,), (2, 2, 4000)], ids=["1d", "3d"])
+def test_gammatone_batched_refuses_other_shapes(shape):
+    with pytest.raises(tg.InvalidInputError, match="batched=True takes"):
+        tg.gammatone_iir_spectrogram(torch.zeros(shape), batched=True, **BATCH)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("method", ["scan", "parallel", "auto"])
+def test_gammatone_counters_add_up(method, batched):
+    x = _clips(rows=2)
+    names = ("gt_calls", "gt_scan_calls", "gt_parallel_calls", "gt_filtered_samples")
+    before = {k: getattr(te, k) for k in names}
+    for _ in range(2):
+        tg.gammatone_iir_spectrogram(x if batched else x[0], method=method, batched=batched,
+                                     **BATCH)
+    delta = {k: getattr(te, k) - before[k] for k in names}
+    rows = 2 if batched else 1
+    lowering = "gt_parallel_calls" if method == "parallel" else "gt_scan_calls"
+    assert delta == {"gt_calls": 2, "gt_scan_calls": 0, "gt_parallel_calls": 0, lowering: 2,
+                     "gt_filtered_samples": 2 * rows * 8 * 24 * 320}
+
+
+def test_gammatone_device_tables_made_once_a_bank():
+    p = tg.ErbParams(5, 120.0, 3000.0)
+    x = _clips(rows=2)
+    before = te._device_tables.cache_info()
+    for batched in (True, False):
+        tg.gammatone_iir_spectrogram(x if batched else x[0], SR, 320, 160, p, batched=batched,
+                                     **CPU)
+    after = te._device_tables.cache_info()
+    assert (after.misses - before.misses, after.hits - before.hits) == (1, 1)
+    window, a, b = te._device_tables(
+        tuple(tg.gammatone_center_frequencies(p).tolist()), SR, 320, torch.device("cpu"))
+    assert window.dtype == a.dtype == b.dtype == torch.float64
+    np.testing.assert_array_equal(a.numpy(), te.make_iir_bank(
+        tg.gammatone_center_frequencies(p), SR)[0])
 
 
 def test_erb_freq_domain_response():
