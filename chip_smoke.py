@@ -9,15 +9,17 @@ Two feature kernels: ``csrc/fused_features.cu`` (f32, the ``precision=HIGH``
 path) and ``csrc/fused_tier_features.cu`` (bf16 tensor cores, the
 ``precision=DEFAULT`` and ``method="pallas:x2"`` tiers); ``csrc/delta.cu``
 (``tg.delta`` on CUDA tensors), ``csrc/mdct.cu`` (the batched MDCT and
-IMDCT at hop = N on float32 CUDA tensors) and ``csrc/griffin_lim.cu`` (one
-fast Griffin-Lim iteration a launch on float32 CUDA tensors). Phases, each
+IMDCT at hop = N on float32 CUDA tensors), ``csrc/griffin_lim.cu`` (one
+fast Griffin-Lim iteration a launch on float32 CUDA tensors) and
+``csrc/gammatone.cu`` (the gammatone bank of ``gammatone_iir_spectrogram``,
+one launch a call on CUDA tensors). Phases, each
 printing lines (any failure exits non-zero, nothing is caught); the f32
 kernel's lines carry the values that the first recorded runs of its
 first (radix-2) and current (radix-8) designs printed ("recorded: ...")
 beside this run's:
 
 1. the card (``nvidia-smi`` name and power limit) and the software versions;
-2. build of the five sources, one ``nvcc`` each, started together
+2. build of the six sources, one ``nvcc`` each, started together
    (seconds, ptxas registers/spills);
 3. each kernel against its plain PyTorch version on the card, same inputs
    from a numpy seed: the f32 kernel at eight geometries, the tier kernel at
@@ -76,7 +78,13 @@ beside this run's:
    ``sc_self_err`` and ``wave_err`` against a float64 Griffin-Lim from the
    same phase after 32, beside the chain's; an iteration's launch timed
    (median of 50, L2 flushed) beside its bytes bound, the chain's iteration
-   and ``gl_task``'s bound;
+   and ``gl_task``'s bound; then (8g, ``gammatone_phase``) the cochleagram
+   cell's batch (32 × 160000 at 16 kHz, 64 bands, 320/160): two calls are two
+   launches of ``csrc/gammatone.cu`` and no scan; the kernel against the
+   torch-op scan (``erb._gammatone_impl``) on the card, the float64 RMS at
+   1e-9 relative and the float32 dB at 1e-4 dB; the launch timed (median of
+   50, L2 flushed) beside ``gt_task``'s bound, the FP64-pipe floor and the
+   scan's time;
 9. config 4 of ``benchmarks/suite.py`` (``config4_phase``): 64 × 5 s of
    noise at 44.1 kHz through ``FeatureSet([CqtPowerPlan (CQT-84 from C1,
    the octave stack the policy elects), multirate chroma, MDCT round
@@ -675,6 +683,12 @@ def serving_phase(tg, ff, dev, card, tier_bound) -> dict:
 # span: the padding's edge samples are divided by an overlap-added window
 # near 1e-9), and after 32 the TTS cell's medians against float64 within
 # the cell's limits (portbench/configs/tts_mel80_gl32.json).
+# 8g: csrc/gammatone.cu against the torch-op scan (erb.py::_gammatone_impl)
+# on the same card, at the cochleagram cell's batch: the float64 RMS at 1e-9
+# relative (tests/test_torch_port_erb.py's bar against JAX's scan; the kernel
+# fuses its multiply-adds), the float32 dB at the cell's gt_db_err limit, 1e-4 dB.
+GT_RMS, GT_DB = 1e-9, 1e-4
+H100_F64_FMA_PER_S = 16.75e12   # FP64 FMA instructions/s (33.5 TFLOP/s), H100 SXM data sheet
 SURF_DB = 2e-2
 SURF_F64 = 1e-10
 SURF_STFT = 1e-4
@@ -1029,6 +1043,81 @@ def griffin_lim_phase(tg, dev, card, rows: int = 32, n: int = 220500) -> dict:
         "bound_ms": bound,
         "bound_by": "bytes",
         "library_ms": chain_ms,
+    }
+
+
+def gammatone_phase(tg, dev, card, rows: int = 32, n: int = 160000) -> dict:
+    """Phase 8g: ``csrc/gammatone.cu`` on the cochleagram cell's batch (see the
+    module docstring). Returns the kernel's entry of the ``kernels`` line."""
+    erb = sys.modules["spectrograms_tpu_torch.erb"]
+
+    def check(label, ok, reading):
+        print(f"[8g {label}] {reading} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"gammatone phase: {label}")
+
+    t_phase = time.perf_counter()
+    frame, hop = 320, 160
+    cell = tg.ErbParams(64, 50.0, 8454.200768317056, tg.ErbSpacing.APPLE_TR35, db_floor=-80.0)
+    plain = tg.ErbParams(64, 50.0, 8454.200768317056, tg.ErbSpacing.APPLE_TR35)
+    xg = torch.from_numpy(signal(np.random.default_rng(SEED + 10), rows, n, SR)).to(dev)
+    cfs = tg.gammatone_center_frequencies(cell)
+    window, a, b = erb._device_tables(tuple(cfs.tolist()), SR, frame, dev)
+    n_frames = 1 + (n - frame) // hop
+    with torch.no_grad():
+        erb.launches = erb.gt_kernel_calls = erb.gt_scan_calls = 0
+        db = tg.gammatone_iir_spectrogram(xg, SR, frame, hop, cell, dtype="float32",
+                                          batched=True)[0]
+        rms = tg.gammatone_iir_spectrogram(xg, SR, frame, hop, plain, dtype="float64",
+                                           batched=True)[0]
+        torch.cuda.synchronize()
+        counts = (erb.launches, erb.gt_kernel_calls, erb.gt_scan_calls)
+
+        def scan(params, dtype):   # the torch-op route: the same input, requiring grad
+            return tg.gammatone_iir_spectrogram(xg.clone().requires_grad_(True), SR, frame, hop,
+                                                params, dtype=dtype, batched=True)[0]
+
+        want_rms = erb._gammatone_impl(xg.to(torch.float64), window, a, b, frame, hop, n_frames)
+        rms_err = float(((rms - want_rms).abs() / want_rms.abs()).max())
+        db_err = float((db - scan(cell, "float32")).abs().max())
+        del want_rms
+    check("counts", counts == (2, 2, 0),
+          f"{card} | 2 calls on {tuple(xg.shape)}, 64 bands, {frame}/{hop}: launches, kernel, "
+          f"scan calls {counts} (want (2, 2, 0))")
+    check("against the scan", rms_err <= GT_RMS and db_err <= GT_DB,
+          f"{card} | float64 RMS max relative error {rms_err:.3e} (limit {GT_RMS:g}), float32 "
+          f"dB max |err| {db_err:.3e} dB (limit {GT_DB:g})")
+    with torch.no_grad():
+        k_ms, k_p90 = time_ms(lambda: erb._kernel_launch(xg, window, a, b, frame, hop, n_frames,
+                                                         -80.0, torch.float32), reps=50)
+        call_ms = time_ms(lambda: tg.gammatone_iir_spectrogram(
+            xg, SR, frame, hop, cell, dtype="float32", batched=True), reps=50)[0]
+        scan_ms = time_ms(lambda: scan(cell, "float32"), reps=3, warmup=1)[0]
+    filtered = rows * 64 * n_frames * frame
+    ops = 34 * filtered + rows * n_frames * frame          # gt_task's count
+    nbytes = 4.0 * rows * n + 4.0 * rows * 64 * n_frames
+    bound = max(ops / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S) * 1e3
+    floor = 17 * filtered / H100_F64_FMA_PER_S * 1e3
+    print(f"[8g times] {card} | median/p90 of 50 (L2 flushed, device spin): the launch "
+          f"{k_ms:.4f}/{k_p90:.4f} ms, the public call {call_ms:.4f} ms | gt_task's bound "
+          f"{bound:.4f} ms ({ops / 1e9:.2f} GFLOP at 67 TFLOP/s, {bound / k_ms:.1%} of it); the "
+          f"FP64-pipe floor {floor:.4f} ms (17 FP64 instructions a filtered sample, "
+          f"{filtered:,} samples; {floor / k_ms:.1%} of it, "
+          f"{17 * filtered / (k_ms * 1e-3) / 1e12:.2f} T FP64 instructions/s) | the torch-op "
+          f"scan {scan_ms:.2f} ms (median of 3)")
+    print(f"[8g phase] {time.perf_counter() - t_phase:.1f} s")
+    return {
+        "name": "gammatone",
+        "route": "cuda",
+        "source": "spectrograms_tpu_torch/csrc/gammatone.cu",
+        "replaces": None,
+        "launches": counts[0],
+        "max_abs_err": db_err,
+        "ms": k_ms,
+        "plain_ms": scan_ms,
+        "bound_ms": bound,
+        "bound_by": "operations",
+        "library_ms": None,
     }
 
 
@@ -2097,7 +2186,7 @@ def tuning_parallel_phase(tg, ff, dev, card, phase7_rates, batch: int = 32,
                 t = time_ms(lambda: s.compute_matrix(x1), reps=20)
             timing = f"median/p90 of 20 {t[0]:.4f}/{t[1]:.4f} ms"
         else:
-            timing = f"one call {wall * 1e3:.1f} ms (host clock, synchronized; auto = scan)"
+            timing = f"one call {wall * 1e3:.1f} ms (host clock, synchronized, the first call)"
         check(f"source {label}", ok,
               f"{card} | compute_matrix(10 s) {tuple(out.shape)} vs the CPU f64 source "
               f"max|err| {err:.3e} (limit {lim:.3e}); launches f32/tier {launches[0]}/"
@@ -2681,7 +2770,7 @@ def main() -> None:
         fail("TF32 matmuls are enabled; the plain references need true f32")
 
     # ---- 2. build -------------------------------------------------------
-    # the host library (g++) builds beside the five nvcc builds
+    # the host library (g++) builds beside the six nvcc builds
     from spectrograms_tpu_torch.runtime import native
     native_build = {}
 
@@ -2701,7 +2790,7 @@ def main() -> None:
             if "registers" in line or "spill" in line
         )
         print(f"[2 build] {name}.cu sm_90a in {seconds:.2f} s "
-              f"(all five, in parallel, loaded in {time.perf_counter() - t0:.2f} s) | {ptxas}")
+              f"(all six, in parallel, loaded in {time.perf_counter() - t0:.2f} s) | {ptxas}")
     native_thread.join()
     if "path" not in native_build or not native.native_available():
         fail("the native host library native/sgtpu.cpp did not build")
@@ -3315,6 +3404,7 @@ def main() -> None:
     surface_phase(tg, ff, dev, card, xb, tier_bound)
     del xb
     gl_entry = griffin_lim_phase(tg, dev, card)
+    gt_entry = gammatone_phase(tg, dev, card)
     mdct_entry = config4_phase(tg, ff, dev, card)
     fft_image_phase(tg, ff, dev, card)
     tuning_parallel_phase(tg, ff, dev, card, phase7_rates)
@@ -3357,7 +3447,7 @@ def main() -> None:
         "bound_ms": delta_bound_ms,
         "bound_by": "bytes",
         "library_ms": None,
-    }, mdct_entry, gl_entry]}))
+    }, mdct_entry, gl_entry, gt_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -19,14 +19,26 @@ independent, ``erb.rs:529-541``); its ``parallel`` lowering is a log-depth
 doubling scan over time, one clip at a time. ``batched=True`` (the port's
 own keyword) takes a (B, n) batch of clips.
 
+On a CUDA device, ``auto`` and ``scan`` are one launch of
+``csrc/gammatone.cu``: the window, the cascade in the scan's order with its
+multiply-adds fused, the RMS, the dB and the cast, every (clip, band, frame)
+in a thread's registers, read straight from a float32 or float64 input
+(any other dtype is cast to float64 first) and written as float32 or
+float64 (any other dtype is cast after the launch). The torch-op scan
+(``_gammatone_impl``) is the plain version: CPU tensors and inputs that
+require grad take it. ``parallel`` stays its own torch-op lowering.
+
 Span ``tg.op.erb.gammatone_iir_spectrogram`` (the bank and the dB).
-Counters, summed over calls: ``gt_calls``; ``gt_scan_calls`` and
-``gt_parallel_calls`` by lowering; ``gt_filtered_samples`` the samples
-the cascade filtered, B × n_bands × n_frames × frame_size a call.
+Counters, summed over calls: ``gt_calls``; ``gt_kernel_calls`` (the calls
+that launched ``csrc/gammatone.cu``), ``gt_scan_calls`` (the torch-op scan)
+and ``gt_parallel_calls`` by route; ``gt_filtered_samples`` the samples the
+cascade filtered, B × n_bands × n_frames × frame_size a call; ``launches``
+the kernel's launches (``ops/_build.py::Source.launch`` adds to it).
 """
 
 from __future__ import annotations
 
+import sys
 from functools import lru_cache
 
 import numpy as np
@@ -34,6 +46,7 @@ import torch
 
 from .dtypes import parse_dtype, resolve_device
 from .errors import InvalidInputError
+from .ops._build import SOURCES
 from .ops.filterbanks import erb_center_frequencies, erb_filterbank
 from .params import ErbParams
 from .spans import span
@@ -49,9 +62,15 @@ _EAR_Q = 9.26449
 _MIN_BW = 24.7
 
 gt_calls = 0             # gammatone_iir_spectrogram calls
-gt_scan_calls = 0        # calls that took the scan lowering
+gt_kernel_calls = 0      # calls that launched csrc/gammatone.cu
+gt_scan_calls = 0        # calls that took the torch-op scan lowering
 gt_parallel_calls = 0    # calls that took the parallel lowering
 gt_filtered_samples = 0  # B × n_bands × n_frames × frame_size, summed over calls
+launches = 0             # csrc/gammatone.cu launches, counted as each returns
+SOURCES["gammatone"].counter = sys.modules[__name__]
+
+# dtype -> the kernel's code (csrc/gammatone.cu::gammatone_launch)
+_KERNEL_DTYPES = {torch.float32: 0, torch.float64: 1}
 
 
 class ErbFilterbank:
@@ -230,6 +249,28 @@ def _gammatone_parallel_impl(x, window, a, b, frame_size: int, hop_size: int, n_
     return torch.sqrt((sig * sig).sum(dim=0) / frame_size)
 
 
+def _kernel_launch(x, window, a, b, frame_size: int, hop_size: int, n_frames: int,
+                   eps, out_dtype: torch.dtype) -> torch.Tensor:
+    """One launch of ``csrc/gammatone.cu`` on the (n,) or (B, n) float32 or
+    float64 CUDA signal ``x``: the (..., n_bands, n_frames) RMS, or its dB
+    over the floor ``eps`` when that is a float, in ``out_dtype`` (float32
+    or float64)."""
+    x = x.contiguous()
+    rows, n = (x.shape[0] if x.ndim == 2 else 1), x.shape[-1]
+    n_bands = a.shape[0]
+    out = torch.empty((*x.shape[:-1], n_bands, n_frames), dtype=out_dtype, device=x.device)
+    if rows == 0:
+        return out
+    if n >= 2**31:
+        raise InvalidInputError("the gammatone kernel takes signals of fewer than 2**31 samples")
+    SOURCES["gammatone"].launch(x.device, x.data_ptr(), window.data_ptr(), a.data_ptr(),
+                                b.data_ptr(), out.data_ptr(), rows, n, frame_size, hop_size,
+                                n_frames, n_bands, _KERNEL_DTYPES[x.dtype],
+                                _KERNEL_DTYPES[out_dtype], int(eps is not None),
+                                0.0 if eps is None else eps)
+    return out
+
+
 def gammatone_iir_spectrogram(samples, sample_rate: float, frame_size: int, hop_size: int,
                               erb_params: ErbParams, dtype=None, method: str = "auto",
                               device=None, batched: bool = False):
@@ -242,16 +283,17 @@ def gammatone_iir_spectrogram(samples, sample_rate: float, frame_size: int, hop_
     ``device="cpu"``.
 
     ``method``: ``"scan"`` steps through the frame's samples in the
-    reference's order (a handful of small operations a sample, so
-    ``frame_size`` × a few dozen launches on the card); ``"parallel"`` is the
-    log-depth doubling scan; ``"auto"`` is ``"scan"``, as in JAX.
+    reference's order: on a CUDA device one launch of ``csrc/gammatone.cu``
+    (unless ``samples`` requires grad), elsewhere a handful of small torch
+    operations a sample; ``"parallel"`` is the log-depth doubling scan;
+    ``"auto"`` is ``"scan"``, as in JAX.
 
     ``batched=True`` takes ``samples`` as a (B, n) batch of clips and returns
     a (B, n_bands, n_frames) spectrogram, each row equal to the call on that
     clip alone; ``scan`` runs every clip at once, ``parallel`` one clip at a
     time. Otherwise ``samples`` is flattened to one signal, as in JAX.
     """
-    global gt_calls, gt_scan_calls, gt_parallel_calls, gt_filtered_samples
+    global gt_calls, gt_kernel_calls, gt_scan_calls, gt_parallel_calls, gt_filtered_samples
     if sample_rate <= 0.0:
         raise InvalidInputError("sample_rate must be > 0")
     if method not in ("auto", "scan", "parallel"):
@@ -263,7 +305,10 @@ def gammatone_iir_spectrogram(samples, sample_rate: float, frame_size: int, hop_
         if batched and x.ndim != 2:
             raise InvalidInputError(
                 f"batched=True takes (batch, n) samples, got shape {tuple(x.shape)}")
-        x = x.to(device=dev, dtype=torch.float64)
+        x = x.to(device=dev)
+        kernel = x.is_cuda and method != "parallel" and not x.requires_grad
+        if not (kernel and x.dtype in _KERNEL_DTYPES):
+            x = x.to(torch.float64)
         if not batched:
             x = x.reshape(-1)
         if x.shape[-1] < frame_size:
@@ -274,7 +319,12 @@ def gammatone_iir_spectrogram(samples, sample_rate: float, frame_size: int, hop_
                                       dev)
         n_frames = 1 + (x.shape[-1] - frame_size) // hop_size
         args = (window, a, b, int(frame_size), int(hop_size), int(n_frames))
-        if method == "parallel":
+        floor = erb_params.db_floor
+        eps = None if floor is None else 10.0 ** (floor / 10.0)
+        if kernel:
+            gt_kernel_calls += 1
+            out = _kernel_launch(x, *args, eps, dt if dt in _KERNEL_DTYPES else torch.float64)
+        elif method == "parallel":
             gt_parallel_calls += 1
             if batched:
                 out = torch.stack([_gammatone_parallel_impl(row, *args) for row in x])
@@ -286,7 +336,6 @@ def gammatone_iir_spectrogram(samples, sample_rate: float, frame_size: int, hop_
         gt_calls += 1
         gt_filtered_samples += out.numel() * int(frame_size)
 
-        if erb_params.db_floor is not None:
-            eps = 10.0 ** (erb_params.db_floor / 10.0)
+        if not kernel and eps is not None:
             out = 10.0 * torch.log10(torch.clamp_min(out, eps))
         return out.to(dt), cfs

@@ -169,7 +169,8 @@ class Source:
             self.counter.launches += 1
 
 
-_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_P, _I, _LL, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
+                      ctypes.c_double)
 
 # every csrc source: its launch entry's arguments before the stream
 SOURCES = {source.name: source for source in (
@@ -178,6 +179,7 @@ SOURCES = {source.name: source for source in (
     Source("delta", [_P, _P, _LL] + [_I] * 9),
     Source("mdct", [_P] * 3 + [_LL] + [_I] * 4),
     Source("griffin_lim", [_P, _P, _LL] + [_P] * 5 + [_LL, _I, _I, _I, _F, _I]),
+    Source("gammatone", [_P] * 5 + [_LL, _LL] + [_I] * 7 + [_D]),
 )}
 
 

@@ -1,5 +1,5 @@
 """``ops/_build.py``'s table of the CUDA sources, ``SOURCES``, and its one
-launch call, ``Source.launch``, through which all five kernels launch.
+launch call, ``Source.launch``, through which all six kernels launch.
 
 On the CPU, with a fake library in place of a built one:
 
@@ -12,7 +12,7 @@ On the CPU, with a fake library in place of a built one:
 - a launch of another build of a source (a stage variant) is not counted;
 - the device guard is entered only for tensors off the current device, and
   the stream is that device's current raw stream;
-- ``launch_counts``/``add_launches`` read and move the five counters.
+- ``launch_counts``/``add_launches`` read and move the six counters.
 
 The tests marked ``card`` launch each source once on a side stream and hold
 it against its plain version; they skip without CUDA. This file imports no
@@ -33,15 +33,16 @@ from spectrograms_tpu_torch.ops import _build
 from spectrograms_tpu_torch.ops import delta as dops
 from spectrograms_tpu_torch.ops import fused_factored as tff
 
-NAMES = ["fused_features", "fused_tier_features", "delta", "mdct", "griffin_lim"]
+NAMES = ["fused_features", "fused_tier_features", "delta", "mdct", "griffin_lim", "gammatone"]
 tmdct = sys.modules["spectrograms_tpu_torch.mdct"]
 trc = sys.modules["spectrograms_tpu_torch.reconstruct"]
+terb = sys.modules["spectrograms_tpu_torch.erb"]
 
 
 def owner(name):
     return {"fused_features": tff.fused_factored_features,
             "fused_tier_features": tff.fused_tier_features, "delta": dops, "mdct": tmdct,
-            "griffin_lim": trc}[name]
+            "griffin_lim": trc, "gammatone": terb}[name]
 
 
 def test_the_table_lists_the_three_sources_in_counter_order():
@@ -64,7 +65,8 @@ def test_launch_signature_matches_the_c_entry(name):
     assert restype is ctypes.c_int
     params = [q.strip() for q in exported[f"{name}_launch"].split(",")]
     assert len(params) == len(argtypes)
-    c_type = {ctypes.c_int: "int ", ctypes.c_longlong: "long long ", ctypes.c_float: "float "}
+    c_type = {ctypes.c_int: "int ", ctypes.c_longlong: "long long ", ctypes.c_float: "float ",
+              ctypes.c_double: "double "}
     for param, argtype in zip(params, argtypes):
         if argtype is ctypes.c_void_p:
             assert "*" in param, param
@@ -83,8 +85,12 @@ def test_launch_signature_matches_the_c_entry(name):
     elif name == "mdct":
         assert "Replaces no Pallas kernel" in src and "mdct.py::_kernel_tables" in src
         assert "wgmma" not in src and "mma.sync" not in src
-    else:
+    elif name == "griffin_lim":
         assert "Replaces no Pallas kernel" in src and "reconstruct.py::_kernel_tables_np" in src
+        assert "wgmma" not in src and "mma.sync" not in src
+    else:
+        assert "Replaces no Pallas kernel" in src and "erb.py::_gammatone_impl" in src
+        assert "erb.py::_KERNEL_DTYPES" in src and "jax.lax.scan" in src
         assert "wgmma" not in src and "mma.sync" not in src
 
 
@@ -171,14 +177,14 @@ def test_a_tensor_off_the_current_device_enters_the_guard(monkeypatch, fake_cuda
 
 
 def test_launch_counts_read_and_move_the_three_counters(monkeypatch):
-    for name, n in zip(NAMES, (5, 6, 7, 8, 9)):
+    for name, n in zip(NAMES, (5, 6, 7, 8, 9, 10)):
         monkeypatch.setattr(owner(name), "launches", n)
-    assert _build.launch_counts() == (5, 6, 7, 8, 9)
-    _build.add_launches((1, 0, 2, 3, 4), -1)
+    assert _build.launch_counts() == (5, 6, 7, 8, 9, 10)
+    _build.add_launches((1, 0, 2, 3, 4, 5), -1)
     assert (tff.fused_factored_features.launches, tff.fused_tier_features.launches,
-            dops.launches, tmdct.launches, trc.launches) == (4, 6, 5, 5, 5)
-    _build.add_launches((1, 0, 2, 3, 4))
-    assert _build.launch_counts() == (5, 6, 7, 8, 9)
+            dops.launches, tmdct.launches, trc.launches, terb.launches) == (4, 6, 5, 5, 5, 5)
+    _build.add_launches((1, 0, 2, 3, 4, 5))
+    assert _build.launch_counts() == (5, 6, 7, 8, 9, 10)
 
 
 def test_the_library_is_loaded_once_and_typed_by_the_table(monkeypatch):
@@ -216,6 +222,14 @@ def card_case(name, device):
     from spectrograms_tpu_torch.ops.filterbanks import mel_filterbank
 
     g = torch.Generator().manual_seed(3)
+    if name == "gammatone":     # against the torch-op scan, which an input that requires grad takes
+        def bank(x):
+            with torch.no_grad():
+                return tg.gammatone_iir_spectrogram(x, 16000.0, 320, 160,
+                                                    tg.ErbParams(40, 50.0, 8000.0),
+                                                    dtype="float64", batched=True)[0]
+        return (bank, (lambda x: bank(x.clone().requires_grad_(True))),
+                torch.randn((3, 16000), generator=g).to(device))
     if name == "griffin_lim":    # the start launch, against its twin
         mag_t = torch.rand((2, 40, 257), generator=g).to(device)
         angles = trc._initial_angles(None, mag_t.shape, torch.float32, device)
@@ -258,6 +272,8 @@ def test_each_source_launches_once_on_the_current_stream_on_the_card(card, name)
     assert moved == tuple(int(n == name) for n in NAMES)
     if name == "delta":
         assert torch.equal(got, ref)
+    elif name == "gammatone":   # float64 RMS, the kernel's multiply-adds fused
+        assert float(((got - ref).abs() / ref.abs()).max()) <= 1e-9
     elif name in ("mdct", "griffin_lim"):    # against the dense chain, the twin
         assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
     else:   # mel power; the tier's 1 pass rounds its products to bf16

@@ -360,7 +360,7 @@ def test_a_replay_counts_the_kernels_it_runs(fake):
     for seed, want in enumerate((1, 3, 4, 5, 6)):
         fs.compute_batch(batch(seed))
         assert ff.fused_factored_features.launches - before == want
-    assert fs._graph.launched == (1, 0, 0, 0, 0) and fake.log.count("replay") == 4
+    assert fs._graph.launched == (1, 0, 0, 0, 0, 0) and fake.log.count("replay") == 4
 
 
 def test_the_reads_keep_what_was_made_before_and_no_intermediate(monkeypatch):
